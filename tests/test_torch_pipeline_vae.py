@@ -1,0 +1,170 @@
+"""The port's latent encoding end to end (``process_vae``, VAE branch, and
+``run_vae -m process``) against the JAX package on one synthetic well.
+
+Latents: max-abs 1e-4 for z_before (f32 conv summation order, XLA-CPU vs
+oneDNN); z_after equal where the codebook indices agree, which they do
+here.
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from dynamorph_tpu.config.schema import (LatentEncodingConfig as JaxLE,
+                                         PipelineConfig as JaxPC)
+from dynamorph_tpu.models import VQVAEz16 as JaxZ16
+from dynamorph_tpu.pipeline.patch_vae import process_vae as jax_process_vae
+from dynamorph_tpu_torch.cli import run_vae
+from dynamorph_tpu_torch.config import load_config
+from dynamorph_tpu_torch.io.pickles import load_pickle, save_pickle
+from dynamorph_tpu_torch.models import VQVAEz16
+from dynamorph_tpu_torch.models.jax_import import state_dict_from_jax
+from dynamorph_tpu_torch.pipeline.patch_vae import (_save_recon_images,
+                                                    encode_patches,
+                                                    process_vae)
+
+WELL = "C5"
+SITES = ["C5-Site_0", "C5-Site_1"]
+N = 5
+LE = dict(network="VQ_VAE_z16", num_hiddens=16, num_residual_hiddens=32,
+          num_embeddings=64, save_output=False)
+
+
+@pytest.fixture(scope="module")
+def well(tmp_path_factory):
+    """raw dir with <well>_file_paths.pkl and a float64 (N, 2, 1, 128, 128)
+    <well>_static_patches.pkl, and weights/model.pt of reference names
+    written from a JAX-initialised model."""
+    root = tmp_path_factory.mktemp("well")
+    raw = root / "raw"
+    raw.mkdir()
+    r = np.random.RandomState(0)
+    fs = [f"/supp/{WELL}-supps/{SITES[i % 2]}/{i}_{i + 1}.h5"
+          for i in range(N)]
+    data = r.rand(N, 2, 1, 128, 128) * 65535.0
+    data[:, 1] *= 0.2
+    save_pickle(fs, str(raw / f"{WELL}_file_paths.pkl"))
+    save_pickle(data, str(raw / f"{WELL}_static_patches.pkl"))
+    params, state = jax.device_get(
+        jax.jit(JaxZ16(vq_impl="xla").init)(jax.random.PRNGKey(1)))
+    weights = root / "weights"
+    weights.mkdir()
+    torch.save(state_dict_from_jax(params, state, "VQ_VAE_z16"),
+               str(weights / "model.pt"))
+    return str(raw), str(root / "supp"), str(weights)
+
+
+def _latents(raw, model_name="weights"):
+    out = os.path.join(raw, model_name)
+    return {f: load_pickle(os.path.join(out, f)) for f in sorted(os.listdir(out))}
+
+
+def _port_config(weights):
+    from dynamorph_tpu_torch.config.schema import (LatentEncodingConfig,
+                                                   PipelineConfig)
+
+    return PipelineConfig(latent_encoding=LatentEncodingConfig(
+        weights=weights, **LE))
+
+
+def test_process_vae_matches_jax(well, tmp_path):
+    raw, supp, weights = well
+    jraw = tmp_path / "jax_raw"
+    jraw.mkdir()
+    for f in os.listdir(raw):
+        if f.endswith(".pkl"):
+            os.symlink(os.path.join(raw, f), jraw / f)
+    jax_process_vae(str(jraw), supp, SITES,
+                    JaxPC(latent_encoding=JaxLE(weights=weights, **LE)),
+                    batch_size=4)
+    out = process_vae(raw, supp, SITES, _port_config(weights), batch_size=4,
+                      device="cpu")
+    assert out["output_dir"] == os.path.join(raw, "weights")
+    ours, ref = _latents(raw), _latents(str(jraw))
+    assert sorted(ours) == sorted(ref) == [
+        f"{WELL}_latent_space.pkl", f"{WELL}_latent_space_after.pkl"]
+    for f in ours:
+        assert ours[f].shape == ref[f].shape == (N, 16 * 16 * 16)
+        assert ours[f].dtype == ref[f].dtype == np.float32
+    zb, zb_j = ours[f"{WELL}_latent_space.pkl"], ref[f"{WELL}_latent_space.pkl"]
+    assert np.max(np.abs(zb - zb_j)) <= 1e-4
+    np.testing.assert_array_equal(ours[f"{WELL}_latent_space_after.pkl"],
+                                  ref[f"{WELL}_latent_space_after.pkl"])
+
+
+def test_cli_process_matches_library(well, tmp_path):
+    """run_vae -m process --device cpu over the YAML config writes what
+    process_vae writes."""
+    raw, supp, weights = well
+    process_vae(raw, supp, SITES, _port_config(weights), device="cpu")
+    direct = _latents(raw)
+    cfg = tmp_path / "cfg.yml"
+    cfg.write_text(
+        "latent_encoding:\n"
+        f"  raw_dirs: ['{raw}']\n  supp_dirs: ['{supp}']\n"
+        f"  weights: ['{weights}']\n  fov: {SITES}\n"
+        "  save_output: False\n  network: 'VQ_VAE_z16'\n"
+        "  num_hiddens: 16\n  num_residual_hiddens: 32\n"
+        "  num_embeddings: 64\n")
+    for f in direct:
+        os.remove(os.path.join(raw, "weights", f))
+    run_vae.main(["-m", "process", "-c", str(cfg), "--device", "cpu"])
+    via_cli = _latents(raw)
+    assert sorted(via_cli) == sorted(direct)
+    for f in direct:
+        np.testing.assert_array_equal(via_cli[f], direct[f])
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        run_vae.run_for_dirs("assemble", raw, supp, load_config(str(cfg)),
+                             device="cpu")
+
+
+def test_entry_points_refuse_cpu_unless_asked(well, tmp_path):
+    """Without a card and without device='cpu', every entry point raises:
+    nothing drops to the CPU quietly."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    raw, supp, weights = well
+    model = VQVAEz16()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        encode_patches(model, np.zeros((2, 2, 128, 128), np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        process_vae(raw, supp, SITES, _port_config(weights))
+    cfg = tmp_path / "cfg.yml"
+    cfg.write_text(
+        "latent_encoding:\n"
+        f"  raw_dirs: ['{raw}']\n  supp_dirs: ['{supp}']\n"
+        f"  weights: ['{weights}']\n  fov: {SITES}\n  save_output: False\n")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_vae.main(["-m", "process", "-c", str(cfg)])
+
+
+def test_encode_patches_pads_trailing_batch(well):
+    """Batch size does not change the latents (the trailing batch is
+    zero-padded and cut back)."""
+    raw, _, weights = well
+    model = VQVAEz16()
+    model.load_state_dict(torch.load(os.path.join(weights, "model.pt")))
+    data = load_pickle(os.path.join(raw, f"{WELL}_static_patches.pkl"))[:, :, 0]
+    a = encode_patches(model, data, batch_size=2, normalize="patch",
+                       device="cpu")
+    b = encode_patches(model, data, batch_size=8, normalize="patch",
+                       device="cpu")
+    for x, y in zip(a, b):
+        assert x.shape == (N, 4096)
+        np.testing.assert_allclose(x, y, atol=1e-5)
+
+
+def test_save_recon_images(well, tmp_path):
+    raw, _, weights = well
+    model = VQVAEz16()
+    model.load_state_dict(torch.load(os.path.join(weights, "model.pt")))
+    data = load_pickle(os.path.join(raw, f"{WELL}_static_patches.pkl"))[:, :, 0]
+    _save_recon_images(model, data, str(tmp_path), n=2, device="cpu")
+    inds = set(torch.randint(0, N, (2,),
+                             generator=torch.Generator().manual_seed(0))
+               .tolist())
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        f"recon_{i}.jpg" for i in inds)
