@@ -11,10 +11,11 @@ Pallas kernel of the JAX package becomes a hand-written CUDA kernel under
 - ``dynamorph_tpu_torch.config``   typed YAML config system
 - ``dynamorph_tpu_torch.io``       pickle / compact artifact IO, site names
 - ``dynamorph_tpu_torch.nn``       JAX-to-torch weight layout converters
-- ``dynamorph_tpu_torch.ops``      VQ codebook lookup (CUDA kernel + plain)
+- ``dynamorph_tpu_torch.ops``      VQ codebook search (CUDA kernels + plain)
 - ``dynamorph_tpu_torch.models``   VQ-VAE z16 / z32 as ``nn.Module``s
 - ``dynamorph_tpu_torch.pipeline`` latent encoding (``process_vae``)
-- ``dynamorph_tpu_torch.cli``      ``run_vae -m process``
+- ``dynamorph_tpu_torch.train``    VQ-VAE training (``train_vqvae``)
+- ``dynamorph_tpu_torch.cli``      ``run_vae -m process``, ``run_training``
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

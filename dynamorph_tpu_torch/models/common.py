@@ -83,7 +83,9 @@ def masked_recon_loss(decoded, inputs, batch_mask, channel_var,
 
 def pairwise_sq_dist_mean(z_flat: torch.Tensor) -> torch.Tensor:
     """(B, L) -> (B, B) matrix of mean_l (z_i - z_j)^2, in matmul form:
-    (|z_i|^2 + |z_j|^2 - 2 z_i.z_j) / L, clamped at 0."""
+    (|z_i|^2 + |z_j|^2 - 2 z_i.z_j) / L, clamped at 0. In fp32: the JAX
+    package runs it at DEFAULT precision (models/common.py:66-87), which is
+    bf16 on a TPU and fp32 on the CPU, where the tests compare the two."""
     l = z_flat.shape[1]
     sq = torch.sum(z_flat * z_flat, dim=1)
     d = sq[:, None] + sq[None, :] - 2.0 * (z_flat @ z_flat.T)
@@ -96,9 +98,14 @@ def time_matching_loss(z_flat, time_matching_mat, w_a, w_t, w_n, margin):
     Relation codes: 2 = adjacent frames of same trajectory (weight w_a),
     1 = same trajectory (w_t), 0 = negative pair (w_n, with hinge margin:
     clamp(sim*w_n + margin, min=0)).
+
+    ``time_matching_mat`` may be the uint8 block that the feed sends (4x
+    fewer bytes): it moves to ``z_flat``'s device as it is and is cast to
+    float32 there (dynamorph_tpu/train/steps.py:84-85).
     """
     sim = pairwise_sq_dist_mean(z_flat)
-    rel = torch.as_tensor(time_matching_mat, device=z_flat.device)
+    rel = torch.as_tensor(time_matching_mat).to(z_flat.device).to(
+        torch.float32)
     w = torch.where(rel == 2, w_a, torch.where(rel == 1, w_t, w_n))
     val = sim * w
     val = torch.where(rel == 0, torch.clamp(val + margin, min=0.0), val)

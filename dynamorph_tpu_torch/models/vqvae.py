@@ -12,21 +12,28 @@ API (both models), NCHW at the boundary as in the JAX package:
     decoded, losses = model.apply(x, train=False,
                                   time_matching_mat=..., batch_mask=...)
 
-The forward passes run under ``core.device.fp32_strict``: full fp32, no TF32,
-as in the JAX reference.
+``train`` decides how batch norm runs, not the module's mode: for the call,
+every submodule is put in the mode ``train`` names and then set back, so
+``model.train()`` / ``model.eval()`` change no result. ``encode`` and
+``decode`` always use the running statistics. ``apply(train=True)`` keeps
+autograd live, normalises with the batch statistics and updates the
+running buffers in place (torch's momentum 0.1, unbiased variance): those
+buffers are the JAX package's ``new_state``.
+
+The passes run under ``core.device.fp32_strict``: full fp32, no TF32, as in
+the JAX reference.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
 
 from ..core.device import fp32_strict
-from ..ops.vq import perplexity_from_counts, vq_codebook_counts, vq_lookup
+from ..ops.vq import (PRECISIONS, gather_codes, perplexity_from_counts,
+                      vq_codebook_counts, vq_indices, vq_lookup)
 from . import common
-
-_TRAINING_SLICE = ("training mode needs the training-path VQ kernel "
-                   "(vq_indices) and the gather_codes gradient, which come "
-                   "with ROADMAP slice B (VQ-VAE z32 training)")
 
 
 class _Codebook(nn.Module):
@@ -51,8 +58,11 @@ class VQVAEBase(nn.Module):
                  weight_recon: float = 1.0, weight_commitment: float = 1.0,
                  weight_matching: float = 0.005, w_a: float = 1.1,
                  w_t: float = 0.1, w_n: float = -0.5, margin: float = 0.5,
-                 channel_var=(1.0, 1.0)):
+                 channel_var=(1.0, 1.0), vq_train_precision: str = "high"):
         super().__init__()
+        if vq_train_precision not in PRECISIONS:
+            raise ValueError(f"vq_train_precision {vq_train_precision!r} not "
+                             f"in {sorted(PRECISIONS)}")
         self.num_inputs = num_inputs
         self.num_hiddens = num_hiddens
         self.num_residual_hiddens = num_residual_hiddens
@@ -63,6 +73,8 @@ class VQVAEBase(nn.Module):
         self.weight_commitment = weight_commitment
         self.weight_matching = weight_matching
         self.w_a, self.w_t, self.w_n, self.margin = w_a, w_t, w_n, margin
+        # the training-path codebook search (ops.vq.PRECISIONS: all fp32)
+        self.vq_train_precision = vq_train_precision
         self.vq = _Codebook(num_embeddings, num_hiddens)
         self.register_buffer(
             "channel_var",
@@ -70,40 +82,67 @@ class VQVAEBase(nn.Module):
                 1, num_inputs, 1, 1))
 
     # subclasses: _encode(x), _decode(z), _recon_weighted, _tm_uses_after;
-    # each ends its __init__ in eval mode (batch-norm running statistics)
+    # each ends its __init__ in eval mode
 
-    def train(self, mode: bool = True):
-        if mode:
-            raise NotImplementedError(_TRAINING_SLICE)
-        return super().train(False)
+    @contextlib.contextmanager
+    def _batch_stats(self, train: bool):
+        """Every submodule in mode ``train`` inside the block (batch norm
+        then uses the batch statistics, or the running ones), and back in
+        its own mode after it."""
+        flipped = [m for m in self.modules() if m.training != train]
+        for m in flipped:
+            m.training = train
+        try:
+            yield
+        finally:
+            for m in flipped:
+                m.training = not train
 
     def encode(self, x: torch.Tensor):
         """(B, C, H, W) -> (z_before, z_after, indices), channel-first
         latents. The ``process_VAE`` hot path (reference
         pipeline/patch_VAE.py:445-452), batched."""
-        with torch.no_grad(), fp32_strict():
+        with torch.no_grad(), fp32_strict(), self._batch_stats(False):
             z_before = self._encode(x)
             z_after, idx = _lookup_nchw(z_before, self.vq.w.weight)
         return z_before, z_after, idx
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
-        with torch.no_grad(), fp32_strict():
+        with torch.no_grad(), fp32_strict(), self._batch_stats(False):
             return self._decode(z)
+
+    def _vq(self, z_before: torch.Tensor, train: bool):
+        """Codebook search, straight-through and commitment loss, perplexity
+        (``_vq``, dynamorph_tpu/models/vqvae.py:76-104). Training searches
+        with the indices-only kernel on detached inputs and re-gathers the
+        rows with ``gather_codes``, so the codebook gets its gradient; eval
+        uses the lookup kernel's rows."""
+        codebook = self.vq.w.weight
+        if train:
+            idx = vq_indices(z_before.permute(0, 2, 3, 1), codebook,
+                             precision=self.vq_train_precision)
+            q = gather_codes(codebook, idx).permute(0, 3, 1, 2)
+        else:
+            q, idx = _lookup_nchw(z_before, codebook)
+        z_after, c_loss = common.vq_losses(z_before, q, self.commitment_cost)
+        perplexity = perplexity_from_counts(
+            vq_codebook_counts(idx, self.num_embeddings))
+        return z_after, c_loss, perplexity
 
     def apply(self, x: torch.Tensor, train: bool = False,
               time_matching_mat=None, batch_mask=None):
-        """Eval-mode forward with the reference's losses: returns
-        (decoded NCHW, losses dict). Batch-norm uses the running
-        statistics."""
-        if train:
-            raise NotImplementedError(_TRAINING_SLICE)
-        with torch.no_grad(), fp32_strict():
+        """Forward with the reference's losses: returns (decoded NCHW,
+        losses dict).
+
+        ``train=False``: no autograd, running batch-norm statistics.
+        ``train=True``: autograd live, batch statistics, and the running
+        buffers updated in place. ``time_matching_mat`` is the (B, B)
+        relation block (uint8 or float, codes 0/1/2); ``batch_mask`` is
+        (B, C, H, W) float."""
+        with torch.set_grad_enabled(train), fp32_strict(), \
+                self._batch_stats(train):
             z_before = self._encode(x)
-            q, idx = _lookup_nchw(z_before, self.vq.w.weight)
-            z_after, c_loss = common.vq_losses(z_before, q,
-                                               self.commitment_cost)
-            perplexity = perplexity_from_counts(
-                vq_codebook_counts(idx, self.num_embeddings))
+            z_after, c_loss, perplexity = self._vq(z_before, train)
             decoded = self._decode(z_after)
             recon = common.masked_recon_loss(decoded, x, batch_mask,
                                              self.channel_var)

@@ -1,18 +1,24 @@
-"""Vector-quantisation codebook lookup.
+"""Vector-quantisation codebook search (the port of
+``dynamorph_tpu/ops/vq.py``).
 
-``vq_lookup`` is the port of ``dynamorph_tpu/ops/vq.py::vq_lookup``: latents
-``(..., D)`` go to their nearest codebook rows, ``(q (..., D), idx (...)
-int32)``. Distances are ``||E||^2 - 2 z.E^T`` in fp32 (``||z||^2`` is
-constant along a row and cannot change the argmin), the first minimum wins,
-and ``q = codebook[idx]`` exactly.
+- ``vq_lookup``: latents ``(..., D)`` go to their nearest codebook rows,
+  ``(q (..., D), idx (...) int32)``, with ``q = codebook[idx]`` exactly. The
+  encode path and the eval steps use it.
+- ``vq_indices``: the same search, indices only. The training path uses it
+  and re-gathers the rows with ``gather_codes``, whose gradient reaches the
+  codebook.
 
-- A CUDA tensor launches the hand-written kernel ``csrc/vq_lookup.cu`` (the
-  port of the TPU kernel ``_vq_kernel``) or raises: there is no fallback.
-- A CPU tensor runs ``vq_lookup_reference``, the plain PyTorch version,
-  which is the kernel's specification.
+Distances are ``||E||^2 - 2 z.E^T`` in fp32 (``||z||^2`` is constant along a
+row and cannot change the argmin) and the first minimum wins.
 
-``vq_lookup.launches`` counts kernel launches, so a run can show that it
-went through the kernel.
+- A CUDA tensor launches a hand-written kernel of ``csrc/vq_lookup.cu``
+  (the ports of the TPU kernels ``_vq_kernel`` and ``_vq_kernel_idx``) or
+  raises: there is no fallback.
+- A CPU tensor runs ``vq_lookup_reference`` or ``vq_indices_reference``, the
+  plain PyTorch versions, which are the kernels' specification.
+
+``vq_lookup.launches`` and ``vq_indices.launches`` count kernel launches, so
+a run can show that it went through the kernels.
 """
 from __future__ import annotations
 
@@ -20,6 +26,8 @@ import ctypes
 import functools
 
 import torch
+
+from ..core.device import fp32_strict
 
 # Latent widths the kernel is instantiated for (csrc/vq_lookup.cu): those
 # of the models' configs, 16 (z16) and 64 (z32).
@@ -64,13 +72,15 @@ def _check_cuda_inputs(z_flat: torch.Tensor, codebook: torch.Tensor) -> None:
 
 
 @functools.cache
-def _kernel():
-    """The kernel's C entry point, built at first use, with its signature
-    declared (pointers and the stream as c_void_p, ints as c_int)."""
+def _kernel(entry: str = "vq_lookup_f32"):
+    """A C entry point of ``csrc/vq_lookup.cu``, built at first use, with its
+    signature declared (pointers and the stream as c_void_p, ints as
+    c_int)."""
     from ._build import load
 
-    fn = load("vq_lookup").vq_lookup_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
+    n_ptrs = {"vq_lookup_f32": 4, "vq_indices_f32": 3}[entry]
+    fn = getattr(load("vq_lookup"), entry)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -78,7 +88,7 @@ def _kernel():
 
 def _vq_lookup_cuda(z_flat: torch.Tensor, codebook: torch.Tensor):
     _check_cuda_inputs(z_flat, codebook)
-    fn = _kernel()
+    fn = _kernel("vq_lookup_f32")
     n, d = z_flat.shape
     q = torch.empty_like(z_flat)
     idx = torch.empty((n,), dtype=torch.int32, device=z_flat.device)
@@ -118,6 +128,111 @@ def vq_lookup(z: torch.Tensor, codebook: torch.Tensor):
 
 
 vq_lookup.launches = 0
+
+# The JAX package's precision strings for the training-path distances, and
+# what each computes here. On the TPU they pick the MXU passes of the
+# distance matmul ("high", its default, went to XLA at 3-pass bf16). The
+# hand-written kernel serves all three in IEEE fp32 FMAs, at least as exact
+# as HIGHEST, so it meets the JAX package's gate for "high" (at most 0.006%
+# of assignments flipped against float64).
+PRECISIONS = {"default": "fp32", "high": "fp32", "highest": "fp32"}
+
+
+def vq_indices_reference(z_flat: torch.Tensor,
+                         codebook: torch.Tensor) -> torch.Tensor:
+    """Plain version: z_flat (N, D), codebook (K, D) -> idx (N,) int32. The
+    TPU kernel's formula (``_vq_kernel_idx``, dynamorph_tpu/ops/vq.py:152-164)
+    in fp32; ``torch.argmin`` returns the first minimum."""
+    e2 = torch.sum(codebook * codebook, dim=-1)
+    dist = e2[None, :] - 2.0 * (z_flat @ codebook.T)
+    return torch.argmin(dist, dim=-1).to(torch.int32)
+
+
+def _vq_indices_cuda(z_flat: torch.Tensor,
+                     codebook: torch.Tensor) -> torch.Tensor:
+    _check_cuda_inputs(z_flat, codebook)
+    fn = _kernel("vq_indices_f32")
+    n, d = z_flat.shape
+    idx = torch.empty((n,), dtype=torch.int32, device=z_flat.device)
+    if n == 0:
+        return idx
+    with torch.cuda.device(z_flat.device):
+        stream = torch.cuda.current_stream(z_flat.device).cuda_stream
+        err = fn(z_flat.data_ptr(), codebook.data_ptr(), idx.data_ptr(), n,
+                 d, codebook.shape[0], stream)
+    if err != 0:
+        raise RuntimeError(f"vq_indices kernel launch failed: cudaError {err}")
+    vq_indices.launches += 1
+    return idx
+
+
+def vq_indices(z: torch.Tensor, codebook: torch.Tensor,
+               precision: str = "highest") -> torch.Tensor:
+    """Nearest-codebook INDICES only: the search of ``vq_lookup`` without
+    the quantized rows. No gradient flows through it.
+
+    Args:
+        z: latents, (..., D).
+        codebook: (K, D) embedding table.
+        precision: a key of ``PRECISIONS``; every one computes in fp32.
+
+    Returns:
+        indices (...,) int32
+    """
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision {precision!r} not in "
+                         f"{sorted(PRECISIONS)}")
+    lead = z.shape[:-1]
+    z_flat = z.detach().reshape(-1, z.shape[-1])
+    codebook = codebook.detach()
+    if z.is_cuda:
+        idx = _vq_indices_cuda(z_flat.contiguous(), codebook.contiguous())
+    elif z.device.type == "cpu" and codebook.device.type == "cpu":
+        idx = vq_indices_reference(z_flat, codebook)
+    else:
+        raise ValueError(f"vq_indices: z on {z.device}, codebook on "
+                         f"{codebook.device}")
+    return idx.reshape(lead)
+
+
+vq_indices.launches = 0
+
+
+def gather_codes_grad(indices: torch.Tensor, ct: torch.Tensor,
+                      num_embeddings: int) -> torch.Tensor:
+    """The codebook gradient of ``gather_codes``: ``onehot(idx)^T @ ct`` in
+    fp32, (K, D). A matrix product has a fixed summation order, so the
+    result is the same in every run, where ``index_add_`` (the backward of
+    ``index_select``) sums with atomics on CUDA. The (N, K) one-hot is freed
+    on return (1.6 GB at the z32 training shape)."""
+    d = ct.shape[-1]
+    idx = indices.reshape(-1, 1).long()
+    with fp32_strict():
+        # one 1 per row, so the scatter has no colliding writes
+        onehot = torch.zeros((idx.shape[0], num_embeddings), dtype=ct.dtype,
+                             device=ct.device).scatter_(1, idx, 1.0)
+        return onehot.T @ ct.reshape(-1, d)
+
+
+class _GatherCodes(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, codebook, indices):
+        ctx.save_for_backward(indices)
+        ctx.num_embeddings = codebook.shape[0]
+        rows = torch.index_select(codebook, 0, indices.reshape(-1).long())
+        return rows.reshape(*indices.shape, codebook.shape[1])
+
+    @staticmethod
+    def backward(ctx, ct):
+        (indices,) = ctx.saved_tensors
+        return gather_codes_grad(indices, ct, ctx.num_embeddings), None
+
+
+def gather_codes(codebook: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """Differentiable codebook row gather: (K, D), (...) -> (..., D)
+    (``dynamorph_tpu/ops/vq.py:255-284``). The forward is a row gather; the
+    backward is ``gather_codes_grad``."""
+    return _GatherCodes.apply(codebook, indices)
 
 
 def vq_codebook_counts(indices: torch.Tensor,

@@ -1,1 +1,2 @@
-"""Training-side helpers; training itself comes with ROADMAP slice B."""
+"""VQ-VAE training: data utilities, steps, the trainer, checkpoints and
+metrics (the port of ``dynamorph_tpu/train`` for one device)."""

@@ -73,13 +73,14 @@ def test_no_jax_import_in_source(path):
     assert not bad, f"{path} imports {bad}"
 
 
-def test_kernel_wrapper_refuses_cpu_tensor():
-    """The CUDA launcher takes CUDA tensors only; the CPU path is chosen by
-    vq_lookup from the tensor's device, never as a fallback."""
-    from dynamorph_tpu_torch.ops.vq import _vq_lookup_cuda
+@pytest.mark.parametrize("launcher", ["_vq_lookup_cuda", "_vq_indices_cuda"])
+def test_kernel_wrapper_refuses_cpu_tensor(launcher):
+    """The CUDA launchers take CUDA tensors only; the CPU path is chosen by
+    vq_lookup / vq_indices from the tensor's device, never as a fallback."""
+    from dynamorph_tpu_torch.ops import vq
 
     with pytest.raises(ValueError, match="CUDA tensor"):
-        _vq_lookup_cuda(torch.zeros(8, 16), torch.zeros(4, 16))
+        getattr(vq, launcher)(torch.zeros(8, 16), torch.zeros(4, 16))
 
 
 def test_resolve_device_raises_without_card():

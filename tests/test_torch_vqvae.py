@@ -7,6 +7,8 @@ another order on XLA-CPU than on oneDNN (the JAX package's own torch parity
 tests hold the same pair at MSE < 1e-5); indices equal; z_after equal
 (bit for bit) where the indices are.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -104,13 +106,29 @@ def test_decode_matches_jax(pair):
     assert np.max(np.abs(dec.numpy() - np.asarray(dec_j))) <= 1e-4
 
 
-def test_training_mode_refused(pair):
+def test_train_flag_not_module_mode_decides(pair):
+    """model.train() changes no result of encode, decode or eval apply: the
+    ``train`` argument decides how batch norm runs. apply(train=True)
+    returns losses with autograd live and leaves the module's mode as it
+    found it."""
     *_, tmodel, x = pair
-    with pytest.raises(NotImplementedError, match="slice B"):
-        tmodel.apply(torch.from_numpy(x), train=True)
-    with pytest.raises(NotImplementedError, match="slice B"):
-        tmodel.train()
-    assert not tmodel.training
+    xt = torch.from_numpy(x)
+    ref = tmodel.encode(xt)
+    ref_dec = tmodel.decode(ref[0])
+    ref_loss = tmodel.apply(xt)[1]["total_loss"]
+    tmodel.train()
+    try:
+        for a, b in zip(tmodel.encode(xt), ref):
+            assert torch.equal(a, b)
+        assert torch.equal(tmodel.decode(ref[0]), ref_dec)
+        assert torch.equal(tmodel.apply(xt)[1]["total_loss"], ref_loss)
+        assert tmodel.training
+    finally:
+        tmodel.eval()
+    model = copy.deepcopy(tmodel)          # train mode updates the buffers
+    _, losses = model.apply(xt, train=True)
+    assert losses["total_loss"].requires_grad
+    assert not model.training
 
 
 def test_fused_stem_equals_unfused(rng):
