@@ -12,13 +12,16 @@ passed prints the final ``{"ok": true, ...}`` line:
 3. hold each kernel against its plain PyTorch version on the card:
    vq_lookup at the unit-test shapes, with forced ties, and at both encode
    shapes (z16 and z32 at batch 512), q bit-equal to codebook[idx];
-   vq_indices at the unit-test shapes, with forced ties, and at the z32
+   vq_indices at the unit-test shapes and the ragged ends of its tiles,
+   with forced ties and on small integers (exact distances), and at the z32
    training shape (N = 768 x 32 x 32) on random rows and on the latents of
-   a full-width z32 encoder. idx must equal the plain version's except at
-   near-ties, rows whose two candidate distances, recomputed in float64,
-   differ by less than 1e-6 relative; at the training shape it must also
-   disagree with a float64 argmin on at most 0.006% of the rows (the JAX
-   package's gate for the "high" training precision);
+   a full-width z32 encoder. idx must equal the lookup kernel's exactly,
+   and the plain version's except at near-ties, rows whose two candidate
+   distances, recomputed in float64, differ by less than 1e-6 relative
+   (everywhere, where the distances are exact); at the training shape it
+   must disagree with a float64 argmin on at most 0.006% of the rows (the
+   JAX package's gate for the "high" training precision), on as many rows
+   as the lookup kernel's codes do;
 4. the encode path: ``run_vae -m process`` (the CLI) for VQ_VAE_z16 at full
    width (num_hiddens 16, num_residual_hiddens 32, num_embeddings 64,
    2 x 128 x 128 patches, batch 512) on a synthetic well of 2,304 float64
@@ -41,7 +44,9 @@ passed prints the final ``{"ok": true, ...}`` line:
    backward runs outside ``fp32_strict`` shows what TF32 would look like;
 7. timings with CUDA events: each kernel at its main-path shapes beside its
    bound, its plain version and the stock-PyTorch yardstick, as device time
-   (calls replayed from a CUDA graph) and per call from Python; the
+   (calls replayed from a CUDA graph) and per call from Python, and for
+   vq_indices its share of the bound and its registers, shared memory and
+   spills (``-Xptxas -v``); the
    gather_codes backward; z16 encode patches/s; one z32 training step at
    batch 768 (ms, patches/s) and its device time by kernel family
    (torch.profiler). Then the ``{"kernels": [...]}`` line, the
@@ -50,6 +55,7 @@ passed prints the final ``{"ok": true, ...}`` line:
 from __future__ import annotations
 
 import copy
+import ctypes
 import json
 import os
 import subprocess
@@ -69,6 +75,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 # Unit-test shapes (tests/test_vq.py) and the two encode shapes at batch 512.
 VQ_SHAPES = [(64, 16, 64), (300, 16, 512), (1025, 64, 128), (512, 64, 512)]
+# Ragged ends of the vq_indices tiles (128 rows a block, 64 codes a chunk).
+RAGGED_SHAPES = [(1, 16, 1), (127, 64, 63), (129, 16, 65), (4097, 64, 512)]
 Z16_SHAPE = (BATCH * 16 * 16, 16, 64)
 Z32_SHAPE = (BATCH * 32 * 32, 64, 512)
 # A near-tie: two codes whose distances, recomputed in float64, differ by
@@ -238,16 +246,19 @@ def f64_argmin(torch, z, cb, chunk=65536):
 
 
 def compare_indices(torch, vq, z, cb):
-    """vq_indices kernel vs plain on the card, and vs the lookup kernel.
-    Returns (flips, largest float64 distance gap at a flip, idx)."""
+    """vq_indices kernel vs plain on the card, and vs the lookup kernel,
+    whose codes it must equal exactly. Returns (flips, largest float64
+    distance gap at a flip, idx, the lookup kernel's idx)."""
     idx = vq._vq_indices_cuda(z, cb)
     torch.cuda.synchronize()
     _, idx_lookup = vq._vq_lookup_cuda(z, cb)
     if not torch.equal(idx, idx_lookup):
-        raise AssertionError("vq_indices and vq_lookup pick different codes")
+        raise AssertionError(
+            f"vq_indices and vq_lookup pick different codes on "
+            f"{int((idx != idx_lookup).sum())} rows")
     flips, gap_max = check_near_ties(torch, "vq_indices", z, cb, idx,
                                      vq.vq_indices_reference(z, cb))
-    return flips, gap_max, idx
+    return flips, gap_max, idx, idx_lookup
 
 
 def training_latents(torch, dev):
@@ -274,14 +285,22 @@ def training_latents(torch, dev):
 def phase_compare_indices(torch, vq, dev):
     phase("3b. vq_indices kernel vs plain version and float64 on the card")
     rng = np.random.RandomState(SEED + 3)
-    for n, d, k in VQ_SHAPES:
-        for name, (z, cb) in (
-                (f"random {n}x{d} K={k}", (rng.randn(n, d), rng.randn(k, d))),
-                (f"ties {n}x{d} K={k}", tied_inputs(rng, n, d, k))):
+    for n, d, k in VQ_SHAPES + RAGGED_SHAPES:
+        cases = [(f"random {n}x{d} K={k}", (rng.randn(n, d), rng.randn(k, d))),
+                 (f"exact {n}x{d} K={k}", (rng.randint(-2, 3, (n, d)),
+                                           rng.randint(-2, 3, (k, d))))]
+        if k >= 4:
+            cases.append((f"ties {n}x{d} K={k}", tied_inputs(rng, n, d, k)))
+        for name, (z, cb) in cases:
             zt = torch.from_numpy(np.asarray(z, np.float32)).to(dev)
             cbt = torch.from_numpy(np.asarray(cb, np.float32)).to(dev)
-            flips, _, _ = compare_indices(torch, vq, zt, cbt)
-            log(f"{name}: idx flips at near-ties {flips}")
+            flips, _, _, _ = compare_indices(torch, vq, zt, cbt)
+            log(f"{name}: idx equal to vq_lookup's; flips vs plain at "
+                f"near-ties {flips}")
+            # small integers: every distance is exact, ties included
+            if name.startswith("exact") and flips:
+                raise AssertionError(f"{name}: exact distances, yet the "
+                                     "kernel differs from the plain argmin")
     n, d, k = TRAIN_SHAPE
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     cases = {"random": (torch.randn(n, d, generator=g, device=dev),
@@ -289,14 +308,19 @@ def phase_compare_indices(torch, vq, dev):
              "latents": training_latents(torch, dev)}
     results = {}
     for label, (z, cb) in cases.items():
-        flips, gap, idx = compare_indices(torch, vq, z, cb)
-        f64_flips = int((idx != f64_argmin(torch, z, cb)).sum())
+        flips, gap, idx, idx_lookup = compare_indices(torch, vq, z, cb)
+        exact = f64_argmin(torch, z, cb)
+        f64_flips = int((idx != exact).sum())
+        lookup_f64_flips = int((idx_lookup != exact).sum())
         rate = f64_flips / n
         log(f"z32 training shape, {label} rows, N={n} D={d} K={k}: idx flips "
             f"vs plain at near-ties {flips} (largest float64 gap {gap:.3e}); "
             f"vs float64 argmin {f64_flips} rows = {100 * rate:.6f}% "
-            f"(gate {100 * F64_FLIP_GATE:.4f}%); "
-            f"{len(torch.unique(idx))} codes used")
+            f"(gate {100 * F64_FLIP_GATE:.4f}%), vq_lookup's codes "
+            f"{lookup_f64_flips} rows; {len(torch.unique(idx))} codes used")
+        if f64_flips != lookup_f64_flips:
+            raise AssertionError("vq_indices and vq_lookup flip different "
+                                 "numbers of rows against float64")
         if rate > F64_FLIP_GATE:
             raise AssertionError(f"vq_indices flips {100 * rate:.6f}% of the "
                                  "rows against float64, above the gate")
@@ -835,8 +859,10 @@ def profile_steps(torch, step, n_steps, step_ms):
     return dict(busy_ms=busy, families=fams)
 
 
-def phase_train_timings(torch, vq, indices, dev):
+def phase_train_timings(torch, vq, indices, dev, build_log):
     from dynamorph_tpu_torch.models import VQVAEz32
+    from dynamorph_tpu_torch.ops._build import load
+    from dynamorph_tpu_torch.ops.vq_tile_sweep import ptxas_usage
     from dynamorph_tpu_torch.train.data import zscore
     from dynamorph_tpu_torch.train.steps import make_train_step
 
@@ -864,6 +890,16 @@ def phase_train_timings(torch, vq, indices, dev):
         f"call), bound {timed['bound_ms']:.6f} ms ({timed['bound_by']}), "
         f"plain {timed['plain_ms']:.6f} ms, library (sum + addmm + argmin) "
         f"{timed['library_ms']:.6f} ms")
+    timed["bound_share"] = timed["bound_ms"] / timed["ms"]
+    # None where the library was built before this run (no build log)
+    timed["ptxas"] = ptxas_usage(build_log, "vq_indices_kernel").get(d)
+    if timed["ptxas"] is not None:
+        smem_bytes = load("vq_lookup").vq_indices_smem_bytes
+        smem_bytes.argtypes, smem_bytes.restype = [ctypes.c_int], ctypes.c_int
+        timed["ptxas"]["dynamic_smem"] = smem_bytes(d)
+    log(f"vq_indices share of its bound: {timed['bound_share']:.4f} "
+        f"({FP32_FLOP_PER_S * timed['bound_share'] / 1e12:.1f} TFLOP/s "
+        f"of fp32); ptxas at D={d}: " + json.dumps(timed["ptxas"]))
 
     idx = kernel()
     ct = torch.randn(n, d, device=dev,
@@ -1004,7 +1040,8 @@ def main() -> int:
         step_check = phase_step_vs_cpu(torch, dev)
         with fp32_strict():
             timed = phase_timings(torch, vq, compared, main_run, dev)
-            train_timed = phase_train_timings(torch, vq, indices, dev)
+            train_timed = phase_train_timings(torch, vq, indices, dev,
+                                              info["log"])
 
     z16 = timed["z16 encode"]
     ti = train_timed["indices"]
@@ -1043,6 +1080,8 @@ def main() -> int:
         "shape": {"n": TRAIN_SHAPE[0], "d": TRAIN_SHAPE[1],
                   "k": TRAIN_SHAPE[2]},
         "ms_per_call": ti["ms_per_call"],
+        "bound_share": ti["bound_share"],
+        "ptxas": ti["ptxas"],
         "flips_vs_plain": {k: indices[k]["flips"] for k in indices},
         "flip_rate_vs_f64": {k: indices[k]["f64_rate"] for k in indices},
     }]

@@ -155,3 +155,54 @@ def test_gather_codes_keeps_leading_shape(rng):
     out = tvq.gather_codes(cb, idx)
     assert out.shape == (2, 3, 3, 16)
     assert torch.equal(out, cb[idx.long()])
+
+
+def test_kernel_build_flags_keep_ieee_fp32():
+    """vq_indices picks vq_lookup's codes bit for bit because both run the
+    same IEEE fp32 FMA chains (csrc/vq_lookup.cu). The build must not flush
+    denormals to zero or approximate division and square roots."""
+    from dynamorph_tpu_torch.ops import _build
+
+    flags = {f.lstrip("-") for f in _build.NVCC_FLAGS}
+    assert not flags & {"use_fast_math", "ftz=true", "prec-div=false",
+                        "prec-sqrt=false"}
+
+
+def test_tile_sweep_rewrites_every_variant():
+    """The tile sweep's variants are the shipped source with its tile
+    constants, or its row order, replaced: the source keeps the lines the
+    sweep rewrites, and every variant differs from the shipped one."""
+    from dynamorph_tpu_torch.ops import vq_tile_sweep as sweep
+
+    shipped = sweep.variant_source("shipped")
+    for name in sweep.VARIANTS:
+        assert (sweep.variant_source(name) == shipped) == (name == "shipped")
+
+
+def test_ptxas_usage_reads_each_instantiation():
+    """chip_smoke.py and the tile sweep read registers, shared memory and
+    spills of each instantiation of a kernel from nvcc's -Xptxas -v log."""
+    from dynamorph_tpu_torch.ops.vq_tile_sweep import ptxas_usage
+
+    entry = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1"
+             "{name}ILi{d}EEEvPKfS2_Piii' for 'sm_90a'")
+    log = "\n".join([
+        entry.format(name="17vq_indices_kernel", d=64),
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers",
+        entry.format(name="16vq_lookup_kernel", d=64),
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 112 registers, used 1 barriers, 16640 bytes smem",
+        entry.format(name="17vq_indices_kernel", d=16),
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 96 registers, 512 bytes smem, 384 bytes cmem[0]",
+    ])
+    assert ptxas_usage(log, "vq_indices_kernel") == {
+        64: dict(registers=128, static_smem=0, spill_stores=0,
+                 spill_loads=0),
+        16: dict(registers=96, static_smem=512, spill_stores=8,
+                 spill_loads=4)}
+    assert ptxas_usage(log, "vq_lookup_kernel") == {
+        64: dict(registers=112, static_smem=16640, spill_stores=8,
+                 spill_loads=4)}
+    assert ptxas_usage("", "vq_indices_kernel") == {}

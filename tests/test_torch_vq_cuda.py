@@ -14,6 +14,10 @@ from dynamorph_tpu_torch.ops import vq
 SHAPES = [(64, 16, 64), (300, 16, 512), (1025, 64, 128), (512, 64, 512),
           (131072, 16, 64)]
 TRAIN_SHAPE = (786432, 64, 512)     # z32 training: 768 x 32 x 32 latents
+# Ragged ends of the vq_indices tiles (128 rows a block, 64 codes a chunk):
+# N of 1, 127, 129 and 4,097 rows, K of 1, 63, 65 and 512 codes, D 16 and 64.
+RAGGED = [(1, 16, 1), (1, 64, 512), (127, 64, 63), (127, 16, 65),
+          (129, 16, 63), (129, 64, 65), (4097, 16, 1), (4097, 64, 512)]
 
 
 @pytest.fixture
@@ -24,29 +28,46 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(n, d, k, tied):
+def _inputs(n, d, k, case):
+    """z (n, d), codebook (k, d) float32 for one case: "random"; "ties",
+    duplicated codes with latents exactly on them (the lowest index of the
+    duplicates, ``tie_winner(k)``, must win); "exact", small integers, whose
+    products and sums are exact in fp32, so distinct codes at the same
+    distance tie exactly; "nan", random with every 7th row NaN (all its
+    distances NaN: index 0)."""
     r = np.random.RandomState(n + d + k)
+    if case == "exact":
+        cb = r.randint(-2, 3, (k, d)).astype(np.float32)
+        return r.randint(-2, 3, (n, d)).astype(np.float32), cb
     cb = r.randn(k, d).astype(np.float32)
-    if not tied:
-        return r.randn(n, d).astype(np.float32), cb
-    # duplicated codebook rows and latents exactly on them: lowest index wins
-    cb[k // 2] = cb[3]
-    cb[k - 1] = cb[3]
-    z = np.empty((n, d), np.float32)
-    z[::2] = cb[3]
-    z[1::2] = cb[k // 2]
+    if case == "ties":
+        a = min(3, k - 1)
+        cb[k // 2] = cb[a]
+        cb[k - 1] = cb[a]
+        z = np.empty((n, d), np.float32)
+        z[::2] = cb[a]
+        z[1::2] = cb[k // 2]
+        return z, cb
+    z = r.randn(n, d).astype(np.float32)
+    if case == "nan":
+        z[::7] = np.nan
     return z, cb
 
 
+def tie_winner(k):
+    """The code that every row of the "ties" case must pick."""
+    return min(3, k - 1, k // 2)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("tied", [False, True], ids=["random", "ties"])
+@pytest.mark.parametrize("case", ["random", "ties"])
 @pytest.mark.parametrize("n,d,k", SHAPES)
-def test_kernel_matches_plain(cuda, n, d, k, tied):
+def test_kernel_matches_plain(cuda, n, d, k, case):
     """idx equal to the plain version's apart from float64-verified
     near-ties; q bit-equal to codebook[idx]. A near-tie: the two distances
     differ by less than 1e-6 of |z|^2 + max |E|^2, the size of the terms the
     fp32 formula |E|^2 - 2 z.E cancels."""
-    z, cb = _inputs(n, d, k, tied)
+    z, cb = _inputs(n, d, k, case)
     zt, cbt = torch.from_numpy(z).to(cuda), torch.from_numpy(cb).to(cuda)
     before = vq.vq_lookup.launches
     q, idx = vq.vq_lookup(zt, cbt)
@@ -56,8 +77,8 @@ def test_kernel_matches_plain(cuda, n, d, k, tied):
     _, idx_ref = vq.vq_lookup_reference(zt, cbt)
     q, idx, idx_ref = (t.cpu().numpy() for t in (q, idx, idx_ref))
     np.testing.assert_array_equal(q, cb[idx])
-    if tied:
-        assert set(np.unique(idx)) == {3}
+    if case == "ties":
+        assert set(np.unique(idx)) == {tie_winner(k)}
     _assert_near_ties(z, cb, idx, idx_ref)
 
 
@@ -73,13 +94,14 @@ def _assert_near_ties(z, cb, idx, idx_ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tied", [False, True], ids=["random", "ties"])
-@pytest.mark.parametrize("n,d,k", SHAPES + [TRAIN_SHAPE])
-def test_indices_kernel_matches_plain(cuda, n, d, k, tied):
-    """vq_indices: idx equal to the plain version's apart from
-    float64-verified near-ties (the criterion above), and equal to what the
-    lookup kernel picks (one distance loop serves both)."""
-    z, cb = _inputs(n, d, k, tied)
+@pytest.mark.parametrize("case", ["random", "ties", "exact", "nan"])
+@pytest.mark.parametrize("n,d,k", SHAPES + [TRAIN_SHAPE] + RAGGED)
+def test_indices_kernel_matches_plain(cuda, n, d, k, case):
+    """vq_indices: idx exactly equal to what the lookup kernel picks (the
+    same distances, the same first minimum), and equal to the plain
+    version's apart from float64-verified near-ties (the criterion above);
+    exactly equal to it where every distance is exact ("exact")."""
+    z, cb = _inputs(n, d, k, case)
     zt, cbt = torch.from_numpy(z).to(cuda), torch.from_numpy(cb).to(cuda)
     before = vq.vq_indices.launches
     idx = vq.vq_indices(zt, cbt, precision="high")
@@ -90,8 +112,12 @@ def test_indices_kernel_matches_plain(cuda, n, d, k, tied):
     assert torch.equal(idx, idx_lookup)
     idx_ref = vq.vq_indices_reference(zt, cbt)
     idx, idx_ref = idx.cpu().numpy(), idx_ref.cpu().numpy()
-    if tied:
-        assert set(np.unique(idx)) == {3}
+    if case == "ties":
+        assert set(np.unique(idx)) == {tie_winner(k)}
+    elif case == "exact":
+        np.testing.assert_array_equal(idx, idx_ref)
+    elif case == "nan":
+        assert not idx[::7].any()
     _assert_near_ties(z, cb, idx, idx_ref)
 
 
