@@ -8,10 +8,14 @@ passed prints the final ``{"ok": true, ...}`` line:
 
 1. versions, card name and power limit (``nvidia-smi``);
 2. build every CUDA kernel of the port from ``dynamorph_tpu_torch/ops/csrc``
-   with ``nvcc`` for sm_90a (one source holds vq_lookup and vq_indices);
+   with ``nvcc`` for sm_90a (one source holds vq_lookup, vq_indices and
+   the lookup's row-wise test oracle);
 3. hold each kernel against its plain PyTorch version on the card:
-   vq_lookup at the unit-test shapes, with forced ties, and at both encode
-   shapes (z16 and z32 at batch 512), q bit-equal to codebook[idx];
+   vq_lookup at the unit-test shapes, with forced ties, at the ragged ends
+   of its tiles (with small integers too, whose distances are exact), and
+   at both encode shapes (z16 and z32 at batch 512), q bit-equal to
+   codebook[idx]; and bit for bit (idx and q) against the row-wise oracle,
+   the lookup's first one-thread-a-row kernel, which is on no path;
    vq_indices at the unit-test shapes and the ragged ends of its tiles,
    with forced ties and on small integers (exact distances), and at the z32
    training shape (N = 768 x 32 x 32) on random rows and on the latents of
@@ -21,7 +25,7 @@ passed prints the final ``{"ok": true, ...}`` line:
    (everywhere, where the distances are exact); at the training shape it
    must disagree with a float64 argmin on at most 0.006% of the rows (the
    JAX package's gate for the "high" training precision), on as many rows
-   as the lookup kernel's codes do;
+   as the lookup kernel's codes and the row-wise oracle's do;
 4. the encode path: ``run_vae -m process`` (the CLI) for VQ_VAE_z16 at full
    width (num_hiddens 16, num_residual_hiddens 32, num_embeddings 64,
    2 x 128 x 128 patches, batch 512) on a synthetic well of 2,304 float64
@@ -43,11 +47,13 @@ passed prints the final ``{"ok": true, ...}`` line:
    check that sees TF32 in the backward pass; a control step whose
    backward runs outside ``fp32_strict`` shows what TF32 would look like;
 7. timings with CUDA events: each kernel at its main-path shapes beside its
-   bound, its plain version and the stock-PyTorch yardstick, as device time
-   (calls replayed from a CUDA graph) and per call from Python, and for
-   vq_indices its share of the bound and its registers, shared memory and
-   spills (``-Xptxas -v``); the
-   gather_codes backward; z16 encode patches/s; one z32 training step at
+   bound, its plain version and the stock-PyTorch yardstick (and the
+   lookup beside its row-wise oracle), as device time (calls replayed from
+   a CUDA graph) and per call from Python, with its share of the bound; the
+   registers, shared memory and spills of every kernel instance
+   (``-Xptxas -v``); the gather_codes backward; z16 encode patches/s; the
+   z32 encode at batch 512 with the shares of the lookup kernel and of the
+   NCHW -> NHWC copy before it (torch.profiler); one z32 training step at
    batch 768 (ms, patches/s) and its device time by kernel family
    (torch.profiler). Then the ``{"kernels": [...]}`` line, the
    ``nvidia-smi`` line and the ``{"ok": true, ...}`` line.
@@ -75,7 +81,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 # Unit-test shapes (tests/test_vq.py) and the two encode shapes at batch 512.
 VQ_SHAPES = [(64, 16, 64), (300, 16, 512), (1025, 64, 128), (512, 64, 512)]
-# Ragged ends of the vq_indices tiles (128 rows a block, 64 codes a chunk).
+# Ragged ends of the tiles (128 rows a block, 64 codes a chunk).
 RAGGED_SHAPES = [(1, 16, 1), (127, 64, 63), (129, 16, 65), (4097, 64, 512)]
 Z16_SHAPE = (BATCH * 16 * 16, 16, 64)
 Z32_SHAPE = (BATCH * 32 * 32, 64, 512)
@@ -201,9 +207,17 @@ def check_near_ties(torch, what, z, cb, idx, idx_ref):
 
 
 def compare_vq(torch, vq, z, cb):
-    """Kernel vs plain on the card. Returns (flips, max_abs_err)."""
+    """Kernel vs plain, and vs the row-wise oracle bit for bit, on the card.
+    Returns (flips, max_abs_err)."""
     q, idx = vq._vq_lookup_cuda(z, cb)
+    q_row, idx_row = vq._vq_lookup_rowwise_cuda(z, cb)
     torch.cuda.synchronize()
+    if not torch.equal(idx, idx_row):
+        raise AssertionError(
+            f"the tiled lookup and the row-wise oracle pick different codes "
+            f"on {int((idx != idx_row).sum())} rows")
+    if not torch.equal(q, q_row):
+        raise AssertionError("q differs from the row-wise oracle's")
     q_ref, idx_ref = vq.vq_lookup_reference(z, cb)
     if not torch.equal(q, cb[idx.long()]):
         raise AssertionError("q is not bit-equal to codebook[idx]")
@@ -212,27 +226,40 @@ def compare_vq(torch, vq, z, cb):
 
 
 def phase_compare(torch, vq, dev):
-    phase("3. vq_lookup kernel vs plain version on the card")
+    phase("3. vq_lookup kernel vs plain version and row-wise oracle on the "
+          "card")
     rng = np.random.RandomState(SEED)
     g = torch.Generator(device=dev).manual_seed(SEED)
     cases = []
     for n, d, k in VQ_SHAPES:
         cases.append((f"random {n}x{d} K={k}", rng.randn(n, d), rng.randn(k, d)))
         cases.append((f"ties {n}x{d} K={k}", *tied_inputs(rng, n, d, k)))
+    for n, d, k in RAGGED_SHAPES:
+        cases.append((f"random {n}x{d} K={k}", rng.randn(n, d), rng.randn(k, d)))
+        cases.append((f"exact {n}x{d} K={k}", rng.randint(-2, 3, (n, d)),
+                      rng.randint(-2, 3, (k, d))))
+        if k >= 4:
+            cases.append((f"ties {n}x{d} K={k}", *tied_inputs(rng, n, d, k)))
     results = {}
     for name, z, cb in cases:
         zt = torch.from_numpy(np.asarray(z, np.float32)).to(dev)
         cbt = torch.from_numpy(np.asarray(cb, np.float32)).to(dev)
         flips, err = compare_vq(torch, vq, zt, cbt)
-        log(f"{name}: idx flips at near-ties {flips}, max |q - q_plain| {err}")
+        log(f"{name}: idx and q equal to the row-wise oracle's; idx flips "
+            f"at near-ties {flips}, max |q - q_plain| {err}")
+        # small integers: every distance is exact, ties included
+        if name.startswith("exact") and flips:
+            raise AssertionError(f"{name}: exact distances, yet the kernel "
+                                 "differs from the plain argmin")
     for label, (n, d, k) in (("z16 encode", Z16_SHAPE),
                              ("z32 encode", Z32_SHAPE)):
         z = torch.randn(n, d, generator=g, device=dev)
         cb = torch.randn(k, d, generator=g, device=dev)
         flips, err = compare_vq(torch, vq, z, cb)
         results[label] = dict(flips=flips, max_abs_err=err, z=z, cb=cb)
-        log(f"{label} N={n} D={d} K={k}: idx flips at near-ties {flips} "
-            f"of {n}, max |q - q_plain| {err}")
+        log(f"{label} N={n} D={d} K={k}: idx and q equal to the row-wise "
+            f"oracle's; idx flips at near-ties {flips} of {n}, max "
+            f"|q - q_plain| {err}")
     return results
 
 
@@ -246,19 +273,23 @@ def f64_argmin(torch, z, cb, chunk=65536):
 
 
 def compare_indices(torch, vq, z, cb):
-    """vq_indices kernel vs plain on the card, and vs the lookup kernel,
-    whose codes it must equal exactly. Returns (flips, largest float64
-    distance gap at a flip, idx, the lookup kernel's idx)."""
+    """vq_indices kernel vs plain on the card, and vs the lookup kernel and
+    the row-wise oracle, whose codes it must equal exactly. Returns (flips,
+    largest float64 distance gap at a flip, idx, the lookup kernel's idx,
+    the oracle's idx)."""
     idx = vq._vq_indices_cuda(z, cb)
     torch.cuda.synchronize()
     _, idx_lookup = vq._vq_lookup_cuda(z, cb)
-    if not torch.equal(idx, idx_lookup):
-        raise AssertionError(
-            f"vq_indices and vq_lookup pick different codes on "
-            f"{int((idx != idx_lookup).sum())} rows")
+    _, idx_row = vq._vq_lookup_rowwise_cuda(z, cb)
+    for other, what in ((idx_lookup, "vq_lookup"), (idx_row, "the row-wise "
+                                                    "oracle")):
+        if not torch.equal(idx, other):
+            raise AssertionError(
+                f"vq_indices and {what} pick different codes on "
+                f"{int((idx != other).sum())} rows")
     flips, gap_max = check_near_ties(torch, "vq_indices", z, cb, idx,
                                      vq.vq_indices_reference(z, cb))
-    return flips, gap_max, idx, idx_lookup
+    return flips, gap_max, idx, idx_lookup, idx_row
 
 
 def training_latents(torch, dev):
@@ -294,9 +325,9 @@ def phase_compare_indices(torch, vq, dev):
         for name, (z, cb) in cases:
             zt = torch.from_numpy(np.asarray(z, np.float32)).to(dev)
             cbt = torch.from_numpy(np.asarray(cb, np.float32)).to(dev)
-            flips, _, _, _ = compare_indices(torch, vq, zt, cbt)
-            log(f"{name}: idx equal to vq_lookup's; flips vs plain at "
-                f"near-ties {flips}")
+            flips = compare_indices(torch, vq, zt, cbt)[0]
+            log(f"{name}: idx equal to vq_lookup's and the row-wise "
+                f"oracle's; flips vs plain at near-ties {flips}")
             # small integers: every distance is exact, ties included
             if name.startswith("exact") and flips:
                 raise AssertionError(f"{name}: exact distances, yet the "
@@ -308,19 +339,23 @@ def phase_compare_indices(torch, vq, dev):
              "latents": training_latents(torch, dev)}
     results = {}
     for label, (z, cb) in cases.items():
-        flips, gap, idx, idx_lookup = compare_indices(torch, vq, z, cb)
+        flips, gap, idx, idx_lookup, idx_row = compare_indices(torch, vq, z,
+                                                               cb)
         exact = f64_argmin(torch, z, cb)
         f64_flips = int((idx != exact).sum())
         lookup_f64_flips = int((idx_lookup != exact).sum())
+        row_f64_flips = int((idx_row != exact).sum())
         rate = f64_flips / n
         log(f"z32 training shape, {label} rows, N={n} D={d} K={k}: idx flips "
             f"vs plain at near-ties {flips} (largest float64 gap {gap:.3e}); "
             f"vs float64 argmin {f64_flips} rows = {100 * rate:.6f}% "
             f"(gate {100 * F64_FLIP_GATE:.4f}%), vq_lookup's codes "
-            f"{lookup_f64_flips} rows; {len(torch.unique(idx))} codes used")
-        if f64_flips != lookup_f64_flips:
-            raise AssertionError("vq_indices and vq_lookup flip different "
-                                 "numbers of rows against float64")
+            f"{lookup_f64_flips} rows, the row-wise oracle's {row_f64_flips}"
+            f" rows; {len(torch.unique(idx))} codes used")
+        if not f64_flips == lookup_f64_flips == row_f64_flips:
+            raise AssertionError("vq_indices, vq_lookup and the row-wise "
+                                 "oracle flip different numbers of rows "
+                                 "against float64")
         if rate > F64_FLIP_GATE:
             raise AssertionError(f"vq_indices flips {100 * rate:.6f}% of the "
                                  "rows against float64, above the gate")
@@ -824,7 +859,7 @@ def family(name):
     return "other (elementwise, reductions, copies, one-hot)"
 
 
-def profile_steps(torch, step, n_steps, step_ms):
+def profile_steps(torch, step, n_steps, step_ms, unit="step"):
     """Device time per step by kernel family, from torch.profiler, and the
     share of the step's wall time the device was idle."""
     from torch.profiler import ProfilerActivity, profile
@@ -849,20 +884,45 @@ def profile_steps(torch, step, n_steps, step_ms):
     fams = {}
     for name, ms in kernels.items():
         fams[family(name)] = fams.get(family(name), 0.0) + ms
-    log(f"device busy {busy:.6f} ms per step of {step_ms:.6f} ms: idle "
+    log(f"device busy {busy:.6f} ms per {unit} of {step_ms:.6f} ms: idle "
         f"share {max(0.0, 1 - busy / step_ms):.4f}")
     for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
         log(f"  {fam}: {ms:.6f} ms ({100 * ms / busy:.1f}%)")
     log("  top kernels:")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:10]:
         log(f"    {ms:.6f} ms  {name[:110]}")
-    return dict(busy_ms=busy, families=fams)
+    return dict(busy_ms=busy, families=fams, kernels=kernels)
 
 
-def phase_train_timings(torch, vq, indices, dev, build_log):
-    from dynamorph_tpu_torch.models import VQVAEz32
+# the C entry that reports each tiled kernel's dynamic shared memory
+PTXAS_KERNELS = {"vq_lookup_kernel": "vq_lookup_smem_bytes",
+                 "vq_indices_kernel": "vq_indices_smem_bytes",
+                 "vq_lookup_rowwise_kernel": None}
+
+
+def kernel_ptxas(build_log):
+    """{kernel: {D: registers, static and dynamic shared memory, spills}}
+    for every kernel instance, from nvcc's -Xptxas -v log (kept beside the
+    library by ops/_build.py, so a cached build has it too)."""
     from dynamorph_tpu_torch.ops._build import load
     from dynamorph_tpu_torch.ops.vq_tile_sweep import ptxas_usage
+
+    lib = load("vq_lookup")
+    out = {}
+    for kernel, smem_entry in PTXAS_KERNELS.items():
+        usage = ptxas_usage(build_log, kernel)
+        if smem_entry is not None:
+            smem_bytes = getattr(lib, smem_entry)
+            smem_bytes.argtypes = [ctypes.c_int]
+            smem_bytes.restype = ctypes.c_int
+            for d in usage:
+                usage[d]["dynamic_smem"] = smem_bytes(d)
+        out[kernel] = usage
+    return out
+
+
+def phase_train_timings(torch, vq, indices, dev, ptxas):
+    from dynamorph_tpu_torch.models import VQVAEz32
     from dynamorph_tpu_torch.train.data import zscore
     from dynamorph_tpu_torch.train.steps import make_train_step
 
@@ -891,12 +951,8 @@ def phase_train_timings(torch, vq, indices, dev, build_log):
         f"plain {timed['plain_ms']:.6f} ms, library (sum + addmm + argmin) "
         f"{timed['library_ms']:.6f} ms")
     timed["bound_share"] = timed["bound_ms"] / timed["ms"]
-    # None where the library was built before this run (no build log)
-    timed["ptxas"] = ptxas_usage(build_log, "vq_indices_kernel").get(d)
-    if timed["ptxas"] is not None:
-        smem_bytes = load("vq_lookup").vq_indices_smem_bytes
-        smem_bytes.argtypes, smem_bytes.restype = [ctypes.c_int], ctypes.c_int
-        timed["ptxas"]["dynamic_smem"] = smem_bytes(d)
+    # None where the build log is missing
+    timed["ptxas"] = ptxas["vq_indices_kernel"].get(d)
     log(f"vq_indices share of its bound: {timed['bound_share']:.4f} "
         f"({FP32_FLOP_PER_S * timed['bound_share'] / 1e12:.1f} TFLOP/s "
         f"of fp32); ptxas at D={d}: " + json.dumps(timed["ptxas"]))
@@ -940,12 +996,49 @@ def phase_train_timings(torch, vq, indices, dev, build_log):
                 step_ms=step_ms, peak_gb=peak, profile=prof)
 
 
-def phase_timings(torch, vq, compared, main, dev):
+def phase_encode_z32(torch, dev):
+    """The z32 encode on a device-resident batch of 512 at the published
+    widths: ms per encode, and from torch.profiler the device time of the
+    lookup kernel and of the NCHW -> NHWC copy of the latents before it
+    (``_lookup_nchw``: the only copy kernel of the encode)."""
+    from dynamorph_tpu_torch.models import VQVAEz32
+
+    torch.manual_seed(SEED)
+    model = VQVAEz32(**TRAIN_NET).to(dev)
+    x = torch.randn(BATCH, TRAIN_NET["num_inputs"], 128, 128, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED))
+
+    def encode():
+        return model.encode(x)
+
+    ms = time_cuda(torch, encode, 10)
+    log(f"z32 encode, device-resident batch of {BATCH}: {ms:.6f} ms, "
+        f"{BATCH / ms * 1e3:.1f} patches/s")
+    prof = profile_steps(torch, encode, 3, ms, unit="encode")
+    if prof is None:
+        return dict(ms=ms)
+    busy = prof["busy_ms"]
+    lookup_ms = sum(v for name, v in prof["kernels"].items()
+                    if "vq_lookup" in name)
+    copy_ms = sum(v for name, v in prof["kernels"].items()
+                  if "copy" in name.lower())
+    log(f"z32 encode: vq_lookup kernel {lookup_ms:.6f} ms "
+        f"({lookup_ms / busy:.4f} of the device time), NCHW -> NHWC "
+        f"permute copy {copy_ms:.6f} ms ({copy_ms / busy:.4f})")
+    return dict(ms=ms, busy_ms=busy, lookup_ms=lookup_ms,
+                lookup_share=lookup_ms / busy, copy_ms=copy_ms,
+                copy_share=copy_ms / busy)
+
+
+def phase_timings(torch, vq, compared, main, dev, ptxas):
     phase("7. timings (CUDA events, warm L2, after 3 warm-up calls)")
     from dynamorph_tpu_torch.core.device import fp32_strict
     from dynamorph_tpu_torch.models import VQVAEz16
     from dynamorph_tpu_torch.pipeline.patch_vae import encode_patches
 
+    for kernel, usage in ptxas.items():
+        for d, u in sorted(usage.items()):
+            log(f"ptxas {kernel} D={d}: " + json.dumps(u))
     log("device ms: calls replayed from a CUDA graph; per call: launched "
         "from Python, host cost included")
     timed = {}
@@ -956,6 +1049,9 @@ def phase_timings(torch, vq, compared, main, dev):
 
         def kernel():
             return vq._vq_lookup_cuda(z, cb)
+
+        def rowwise():
+            return vq._vq_lookup_rowwise_cuda(z, cb)
 
         def plain():
             return vq.vq_lookup_reference(z, cb)
@@ -968,16 +1064,19 @@ def phase_timings(torch, vq, compared, main, dev):
 
         ms_call = time_cuda(torch, kernel, iters)
         ms = time_graph(torch, kernel, iters)
+        rowwise_ms = time_graph(torch, rowwise, iters)
         plain_ms = time_graph(torch, plain, iters)
         library_ms = time_graph(torch, library, iters)
         bound_ms, bound_by = vq_bound(n, d, k)
         timed[label] = dict(ms=ms, ms_per_call=ms_call, plain_ms=plain_ms,
                             library_ms=library_ms, bound_ms=bound_ms,
-                            bound_by=bound_by)
+                            bound_by=bound_by, bound_share=bound_ms / ms,
+                            rowwise_ms=rowwise_ms)
         log(f"vq_lookup {label} N={n} D={d} K={k}: kernel {ms:.6f} ms "
             f"device ({ms_call:.6f} ms per call), bound {bound_ms:.6f} ms "
-            f"({bound_by}), plain {plain_ms:.6f} ms, library (sum + addmm "
-            f"+ argmin + index_select) {library_ms:.6f} ms")
+            f"({bound_by}), share of bound {bound_ms / ms:.4f}; row-wise "
+            f"oracle {rowwise_ms:.6f} ms, plain {plain_ms:.6f} ms, library "
+            f"(sum + addmm + argmin + index_select) {library_ms:.6f} ms")
 
     # encode throughput: device-resident batches, and from a host array
     model = VQVAEz16(num_inputs=2, **NET)
@@ -996,6 +1095,7 @@ def phase_timings(torch, vq, compared, main, dev):
     dt = time.perf_counter() - t0
     log(f"z16 encode_patches from host float32, {len(host)} patches: "
         f"{dt:.4f} s, {len(host) / dt:.1f} patches/s")
+    timed["z32 encode model"] = phase_encode_z32(torch, dev)
     return timed
 
 
@@ -1024,13 +1124,15 @@ def main() -> int:
 
     phase("2. build the kernels (nvcc, sm_90a)")
     info = _build.build("vq_lookup")
-    log(f"vq_lookup.cu (vq_lookup, vq_indices): {info['path']} "
+    log(f"vq_lookup.cu (vq_lookup, vq_indices, vq_lookup_rowwise): "
+        f"{info['path']} "
         f"({info['seconds']:.2f} s)")
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "error" in line \
                 or "Compiling entry" in line:
             log(f"  {line.strip()}")
 
+    ptxas = kernel_ptxas(info["log"])
     with fp32_strict():
         compared = phase_compare(torch, vq, dev)
         indices = phase_compare_indices(torch, vq, dev)
@@ -1039,9 +1141,8 @@ def main() -> int:
         train_run = phase_training_path(torch, vq, root, dev)
         step_check = phase_step_vs_cpu(torch, dev)
         with fp32_strict():
-            timed = phase_timings(torch, vq, compared, main_run, dev)
-            train_timed = phase_train_timings(torch, vq, indices, dev,
-                                              info["log"])
+            timed = phase_timings(torch, vq, compared, main_run, dev, ptxas)
+            train_timed = phase_train_timings(torch, vq, indices, dev, ptxas)
 
     z16 = timed["z16 encode"]
     ti = train_timed["indices"]
@@ -1059,10 +1160,14 @@ def main() -> int:
         "library_ms": z16["library_ms"],
         "shape": {"n": Z16_SHAPE[0], "d": Z16_SHAPE[1], "k": Z16_SHAPE[2]},
         "ms_per_call": z16["ms_per_call"],
+        "bound_share": z16["bound_share"],
+        "rowwise_ms": z16["rowwise_ms"],
+        "ptxas": ptxas["vq_lookup_kernel"],
         "launches_training_path": train_run["launches_lookup"],
         "z32": {k: timed["z32 encode"][k] for k in
                 ("ms", "ms_per_call", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms")},
+                 "library_ms", "bound_share", "rowwise_ms")},
+        "z32_encode": timed["z32 encode model"],
     }, {
         "name": "vq_indices",
         "route": "cuda",

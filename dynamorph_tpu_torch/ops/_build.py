@@ -49,11 +49,15 @@ def library_path(name: str) -> Path:
 def build(name: str) -> dict:
     """Compile ``csrc/<name>.cu`` unless it is built already. Returns
     ``{"path", "seconds", "log"}``: ``log`` holds ``nvcc``'s output
-    (``-Xptxas -v``: registers, shared memory, spills) and ``seconds`` is
-    0.0 for a library that was already built. Raises if the compile fails."""
+    (``-Xptxas -v``: registers, shared memory, spills), kept beside the
+    library as ``lib<name>-<hash>.log`` so that a later build of the same
+    source returns it too, and ``seconds`` is 0.0 for a library that was
+    already built. Raises if the compile fails."""
     out = library_path(name)
+    log_path = out.with_suffix(".log")
     if out.exists():
-        return {"path": str(out), "seconds": 0.0, "log": ""}
+        log = log_path.read_text() if log_path.exists() else ""
+        return {"path": str(out), "seconds": 0.0, "log": log}
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -65,7 +69,12 @@ def build(name: str) -> dict:
     if res.returncode != 0:
         raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
                            f"{res.returncode}\n{res.stdout}")
-    os.replace(tmp, out)   # atomic: a half-written library is never seen
+    # the log first, so that where the library exists its log does too;
+    # each replace is atomic: a half-written file is never seen
+    tmp_log = log_path.with_name(f"{log_path.name}.{os.getpid()}.tmp")
+    tmp_log.write_text(res.stdout)
+    os.replace(tmp_log, log_path)
+    os.replace(tmp, out)
     return {"path": str(out), "seconds": seconds, "log": res.stdout}
 
 

@@ -19,6 +19,10 @@ row and cannot change the argmin) and the first minimum wins.
 
 ``vq_lookup.launches`` and ``vq_indices.launches`` count kernel launches, so
 a run can show that it went through the kernels.
+
+``_vq_lookup_rowwise_cuda`` launches the lookup's first, one-thread-a-row
+kernel: a test oracle for the tiled one (the same fp32 chains in another
+loop structure), which nothing in the package calls and no counter counts.
 """
 from __future__ import annotations
 
@@ -78,7 +82,8 @@ def _kernel(entry: str = "vq_lookup_f32"):
     c_int)."""
     from ._build import load
 
-    n_ptrs = {"vq_lookup_f32": 4, "vq_indices_f32": 3}[entry]
+    n_ptrs = {"vq_lookup_f32": 4, "vq_lookup_rowwise_f32": 4,
+              "vq_indices_f32": 3}[entry]
     fn = getattr(load("vq_lookup"), entry)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3 + \
         [ctypes.c_void_p]
@@ -86,21 +91,36 @@ def _kernel(entry: str = "vq_lookup_f32"):
     return fn
 
 
-def _vq_lookup_cuda(z_flat: torch.Tensor, codebook: torch.Tensor):
+def _launch_lookup(entry: str, z_flat: torch.Tensor, codebook: torch.Tensor):
+    """(q, idx, launched) from the lookup kernel behind the C entry
+    ``entry``; nothing is launched where N is 0."""
     _check_cuda_inputs(z_flat, codebook)
-    fn = _kernel("vq_lookup_f32")
+    fn = _kernel(entry)
     n, d = z_flat.shape
     q = torch.empty_like(z_flat)
     idx = torch.empty((n,), dtype=torch.int32, device=z_flat.device)
     if n == 0:
-        return q, idx
+        return q, idx, False
     with torch.cuda.device(z_flat.device):
         stream = torch.cuda.current_stream(z_flat.device).cuda_stream
         err = fn(z_flat.data_ptr(), codebook.data_ptr(), q.data_ptr(),
                  idx.data_ptr(), n, d, codebook.shape[0], stream)
     if err != 0:
-        raise RuntimeError(f"vq_lookup kernel launch failed: cudaError {err}")
-    vq_lookup.launches += 1
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
+    return q, idx, True
+
+
+def _vq_lookup_cuda(z_flat: torch.Tensor, codebook: torch.Tensor):
+    q, idx, launched = _launch_lookup("vq_lookup_f32", z_flat, codebook)
+    vq_lookup.launches += launched
+    return q, idx
+
+
+def _vq_lookup_rowwise_cuda(z_flat: torch.Tensor, codebook: torch.Tensor):
+    """The row-wise test oracle of the lookup kernel: (q, idx) bit-equal to
+    ``_vq_lookup_cuda``'s. Not counted, and called by no path of the
+    package (tests and chip_smoke.py only)."""
+    q, idx, _ = _launch_lookup("vq_lookup_rowwise_f32", z_flat, codebook)
     return q, idx
 
 

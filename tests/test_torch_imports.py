@@ -73,7 +73,8 @@ def test_no_jax_import_in_source(path):
     assert not bad, f"{path} imports {bad}"
 
 
-@pytest.mark.parametrize("launcher", ["_vq_lookup_cuda", "_vq_indices_cuda"])
+@pytest.mark.parametrize("launcher", ["_vq_lookup_cuda", "_vq_indices_cuda",
+                                      "_vq_lookup_rowwise_cuda"])
 def test_kernel_wrapper_refuses_cpu_tensor(launcher):
     """The CUDA launchers take CUDA tensors only; the CPU path is chosen by
     vq_lookup / vq_indices from the tensor's device, never as a fallback."""
@@ -81,6 +82,16 @@ def test_kernel_wrapper_refuses_cpu_tensor(launcher):
 
     with pytest.raises(ValueError, match="CUDA tensor"):
         getattr(vq, launcher)(torch.zeros(8, 16), torch.zeros(4, 16))
+
+
+def test_rowwise_oracle_is_on_no_path():
+    """The lookup's row-wise kernel is a test oracle: no module of the
+    models, pipeline, trainer or CLIs names it."""
+    hits = [str(p.relative_to(ROOT)) for sub in ("models", "pipeline",
+                                                 "train", "cli")
+            for p in sorted((PORT / sub).rglob("*.py"))
+            if "rowwise" in p.read_text()]
+    assert not hits
 
 
 def test_resolve_device_raises_without_card():

@@ -158,14 +158,40 @@ def test_gather_codes_keeps_leading_shape(rng):
 
 
 def test_kernel_build_flags_keep_ieee_fp32():
-    """vq_indices picks vq_lookup's codes bit for bit because both run the
-    same IEEE fp32 FMA chains (csrc/vq_lookup.cu). The build must not flush
-    denormals to zero or approximate division and square roots."""
+    """vq_lookup, vq_indices and the row-wise oracle pick the same codes bit
+    for bit because they run the same IEEE fp32 FMA chains
+    (csrc/vq_lookup.cu). The build must not flush denormals to zero or
+    approximate division and square roots, and the source keeps the three
+    C entries that ops/vq.py loads."""
     from dynamorph_tpu_torch.ops import _build
 
     flags = {f.lstrip("-") for f in _build.NVCC_FLAGS}
     assert not flags & {"use_fast_math", "ftz=true", "prec-div=false",
                         "prec-sqrt=false"}
+    src = (_build.CSRC / "vq_lookup.cu").read_text()
+    for entry in ("vq_lookup_f32", "vq_indices_f32", "vq_lookup_rowwise_f32"):
+        assert f'extern "C" int {entry}(' in src
+
+
+def test_cached_build_returns_its_log(tmp_path, monkeypatch):
+    """A library built before returns the nvcc log kept beside it (ptxas
+    registers and spills), without running nvcc again."""
+    from dynamorph_tpu_torch.ops import _build
+
+    def no_nvcc():
+        raise AssertionError("nvcc ran for a library already built")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+    lib = _build.library_path("vq_lookup")
+    assert lib.parent == tmp_path
+    lib.write_bytes(b"\x7fELF")
+    log = "ptxas info    : Used 128 registers, used 1 barriers\n"
+    lib.with_suffix(".log").write_text(log)
+    assert _build.build("vq_lookup") == {"path": str(lib), "seconds": 0.0,
+                                         "log": log}
+    lib.with_suffix(".log").unlink()
+    assert _build.build("vq_lookup")["log"] == ""
 
 
 def test_tile_sweep_rewrites_every_variant():
@@ -177,6 +203,17 @@ def test_tile_sweep_rewrites_every_variant():
     shipped = sweep.variant_source("shipped")
     for name in sweep.VARIANTS:
         assert (sweep.variant_source(name) == shipped) == (name == "shipped")
+
+
+def test_tile_sweep_rewrites_every_lookup_variant():
+    """The same for the lookup sweep (``--lookup``), whose variants replace
+    the z16 lookup's constants or the shared ones."""
+    from dynamorph_tpu_torch.ops import vq_tile_sweep as sweep
+
+    shipped = sweep.variant_source("shipped", lookup=True)
+    for name in {**sweep.LOOKUP_VARIANTS, **sweep.ABLATIONS}:
+        assert (sweep.variant_source(name, lookup=True) == shipped) == \
+            (name == "shipped")
 
 
 def test_ptxas_usage_reads_each_instantiation():

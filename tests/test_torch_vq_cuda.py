@@ -1,5 +1,6 @@
 """The CUDA kernels (vq_lookup, vq_indices) against their plain PyTorch
-versions, and gather_codes on the card against the CPU.
+versions and against each other (with the lookup's row-wise test oracle),
+and gather_codes on the card against the CPU.
 
 This file imports neither jax nor the JAX package, so it also runs on a GPU
 host without them: ``python -m pytest --noconftest tests/test_torch_vq_cuda.py``.
@@ -14,7 +15,7 @@ from dynamorph_tpu_torch.ops import vq
 SHAPES = [(64, 16, 64), (300, 16, 512), (1025, 64, 128), (512, 64, 512),
           (131072, 16, 64)]
 TRAIN_SHAPE = (786432, 64, 512)     # z32 training: 768 x 32 x 32 latents
-# Ragged ends of the vq_indices tiles (128 rows a block, 64 codes a chunk):
+# Ragged ends of the tiles (128 rows a block, 64 codes a chunk):
 # N of 1, 127, 129 and 4,097 rows, K of 1, 63, 65 and 512 codes, D 16 and 64.
 RAGGED = [(1, 16, 1), (1, 64, 512), (127, 64, 63), (127, 16, 65),
           (129, 16, 63), (129, 64, 65), (4097, 16, 1), (4097, 64, 512)]
@@ -61,7 +62,7 @@ def tie_winner(k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["random", "ties"])
-@pytest.mark.parametrize("n,d,k", SHAPES)
+@pytest.mark.parametrize("n,d,k", SHAPES + RAGGED)
 def test_kernel_matches_plain(cuda, n, d, k, case):
     """idx equal to the plain version's apart from float64-verified
     near-ties; q bit-equal to codebook[idx]. A near-tie: the two distances
@@ -80,6 +81,31 @@ def test_kernel_matches_plain(cuda, n, d, k, case):
     if case == "ties":
         assert set(np.unique(idx)) == {tie_winner(k)}
     _assert_near_ties(z, cb, idx, idx_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "ties", "exact", "nan"])
+@pytest.mark.parametrize("n,d,k", SHAPES + [TRAIN_SHAPE] + RAGGED)
+def test_lookup_kernel_matches_oracles(cuda, n, d, k, case):
+    """The tiled vq_lookup against two independent searches that run the
+    same fp32 chains in other loop structures: its idx equals vq_indices'
+    and the row-wise oracle's bit for bit, and its q equals codebook[idx]
+    and the oracle's q bit for bit."""
+    z, cb = _inputs(n, d, k, case)
+    zt, cbt = torch.from_numpy(z).to(cuda), torch.from_numpy(cb).to(cuda)
+    q, idx = vq._vq_lookup_cuda(zt, cbt)
+    q_row, idx_row = vq._vq_lookup_rowwise_cuda(zt, cbt)
+    idx_indices = vq._vq_indices_cuda(zt, cbt)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, idx_row)
+    assert torch.equal(idx, idx_indices)
+    assert torch.equal(q, q_row)
+    assert torch.equal(q, cbt[idx.long()])
+    idx = idx.cpu().numpy()
+    if case == "ties":
+        assert set(np.unique(idx)) == {tie_winner(k)}
+    elif case == "nan":
+        assert not idx[::7].any()
 
 
 def _assert_near_ties(z, cb, idx, idx_ref):
