@@ -55,14 +55,30 @@ passed prints the final ``{"ok": true, ...}`` line:
    z32 encode at batch 512 with the shares of the lookup kernel and of the
    NCHW -> NHWC copy before it (torch.profiler); one z32 training step at
    batch 768 (ms, patches/s) and its device time by kernel family
-   (torch.profiler). Then the ``{"kernels": [...]}`` line, the
-   ``nvidia-smi`` line and the ``{"ok": true, ...}`` line.
+   (torch.profiler);
+8. the segmentation path: ``run_segmentation -m segmentation`` (the CLI)
+   with the U-Net at the published widths (channels [0, 1] of 3, 3
+   classes, window 256, 5 random passes; ResNet34 encoder, decoder 256,
+   128, 64, 32, 16), seeded random weights with batch norm moved off the
+   identity, on a synthetic site of 2 float64 frames of 2048 x 2048, in
+   the tiled ensemble and in direct mode. It checks the probabilities
+   (shape, dtype, no -1 fill, class sums within 1e-5 of 1), both PNGs and
+   that no site failed; then 8 full-width tiles and one 512 x 512 direct
+   frame on the card against the CPU (max |d prob| <= 1e-4) beside a TF32
+   control that must land above that limit; then one 2048 x 2048 frame in
+   each mode (frames/s end to end and of the device work alone, the share
+   of the 67 TFLOP/s fp32 rate, peak memory, a torch.profiler breakdown by
+   kernel family) and the host's share of a site. This path reaches no
+   Pallas kernel: it runs cuDNN convolutions and batch norm in fp32.
+   Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and the
+   ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
 import copy
 import ctypes
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -851,17 +867,20 @@ FAMILIES = (
 )
 
 
-def family(name):
+def family(name, families=FAMILIES,
+           other="other (elementwise, reductions, copies, one-hot)"):
     lname = name.lower()
-    for fam, keys in FAMILIES:
+    for fam, keys in families:
         if any(k in lname for k in keys):
             return fam
-    return "other (elementwise, reductions, copies, one-hot)"
+    return other
 
 
-def profile_steps(torch, step, n_steps, step_ms, unit="step"):
-    """Device time per step by kernel family, from torch.profiler, and the
-    share of the step's wall time the device was idle."""
+def profile_steps(torch, step, n_steps, step_ms, unit="step",
+                  families=FAMILIES, other=None, tag=""):
+    """Device time per step by kernel family (``families``, the rest under
+    ``other``), from torch.profiler, and the share of the step's wall time
+    the device was idle. ``tag`` ends every line printed."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -883,11 +902,12 @@ def profile_steps(torch, step, n_steps, step_ms, unit="step"):
         return None
     fams = {}
     for name, ms in kernels.items():
-        fams[family(name)] = fams.get(family(name), 0.0) + ms
+        fam = family(name, families, *([other] if other else []))
+        fams[fam] = fams.get(fam, 0.0) + ms
     log(f"device busy {busy:.6f} ms per {unit} of {step_ms:.6f} ms: idle "
-        f"share {max(0.0, 1 - busy / step_ms):.4f}")
+        f"share {max(0.0, 1 - busy / step_ms):.4f}{tag}")
     for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
-        log(f"  {fam}: {ms:.6f} ms ({100 * ms / busy:.1f}%)")
+        log(f"  {fam}: {ms:.6f} ms ({100 * ms / busy:.1f}%){tag}")
     log("  top kernels:")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:10]:
         log(f"    {ms:.6f} ms  {name[:110]}")
@@ -1099,6 +1119,358 @@ def phase_timings(torch, vq, compared, main, dev, ptxas):
     return timed
 
 
+# ---------------------------------------------------------------- phase 8
+
+# U-Net segmentation at the published widths (configs/config_example.yml:
+# 20-33: channels [0, 1] of 3, 3 classes, window 256, 5 random passes) on a
+# synthetic site of 2 frames of 2048 x 2048, as run_preproc writes them
+SEG_WINDOW = 256
+SEG_FRAME = 2048
+SEG_T = 2
+SEG_SUPP = 5
+SEG_PROB_ATOL = 1e-4        # card vs CPU, max |d prob|
+SEG_SUM_ATOL = 1e-5         # class probabilities sum to 1
+# the head's weights scaled so the logits are O(1), where fp32 rounding
+# and TF32 show in the probabilities (random init leaves them near 0.2)
+SEG_HEAD_SCALE = 30.0
+# kernel families of a U-Net forward, matched in this order on the
+# lowercased kernel name (cuDNN's batch-norm kernels carry "cudnn" too)
+SEG_FAMILIES = (
+    ("batch norm (cuDNN)", ("batch_norm", "batchnorm", "bn_fw")),
+    ("convolutions (cuDNN)", ("conv", "fprop", "cudnn", "winograd", "fft",
+                              "cf32", "gemm", "xmma", "cutlass")),
+    ("copies (host <-> card, concat, casts)", ("memcpy", "copy", "memset")),
+)
+SEG_OTHER = "elementwise (ReLU, add, upsample, max-pool, softmax, scale)"
+
+
+def seg_model(torch, seed, device):
+    """A full-width ``Segment`` with seeded random weights, its batch-norm
+    running statistics, scales and offsets moved off the identity, and its
+    head scaled by SEG_HEAD_SCALE."""
+    from torch import nn
+
+    from dynamorph_tpu_torch.seg.model import Segment
+
+    model = Segment(input_shape=(2, SEG_WINDOW, SEG_WINDOW), n_classes=3,
+                    seed=seed, device=device)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.net.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                n = m.num_features
+                m.running_mean.copy_(0.2 * torch.randn(n, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=g))
+                m.weight.copy_(0.7 + 0.6 * torch.rand(n, generator=g))
+                m.bias.copy_(0.2 * torch.randn(n, generator=g))
+        model.net.segmentation_head[0].weight.mul_(SEG_HEAD_SCALE)
+    return model
+
+
+def write_seg_site(torch, root):
+    """A raw dir with one float64 (T, 3, 1, 2048, 2048) site in uint16
+    intensity units (phase, retardance, brightfield: smooth structure plus
+    noise), the model.pt and the two configs. Returns (raw dir, site name,
+    {mode: config path}, the CPU model)."""
+    raw, supp, weights = (os.path.join(root, p)
+                          for p in ("seg_raw", "seg_supp", "seg_weights"))
+    for p in (raw, supp):
+        os.makedirs(p)
+    rng = np.random.RandomState(SEED + 6)
+    yy, xx = np.mgrid[0:SEG_FRAME, 0:SEG_FRAME].astype(np.float32)
+    site = np.empty((SEG_T, 3, 1, SEG_FRAME, SEG_FRAME))
+    for t in range(SEG_T):
+        wave = np.sin(xx / (31 + 7 * t)) * np.cos(yy / 47)
+        site[t, 0, 0] = 30000 + 12000 * wave + 3000 * rng.rand(SEG_FRAME,
+                                                                SEG_FRAME)
+        site[t, 1, 0] = 8000 + 6000 * wave ** 2 + 1500 * rng.rand(
+            SEG_FRAME, SEG_FRAME)
+        site[t, 2, 0] = 20000 + 1000 * rng.rand(SEG_FRAME, SEG_FRAME)
+    name = "D4-Site_0"
+    np.save(os.path.join(raw, f"{name}.npy"), site)
+    cpu_model = seg_model(torch, SEED, "cpu")
+    cpu_model.save(weights)
+    cfgs = {}
+    for mode in ("tiled", "direct"):
+        cfgs[mode] = os.path.join(root, f"seg_{mode}.yml")
+        with open(cfgs[mode], "w") as f:
+            f.write("segmentation_inference:\n"
+                    f"  raw_dirs: ['{raw}']\n  supp_dirs: ['{supp}']\n"
+                    f"  weights: '{weights}'\n  network: 'UNet'\n"
+                    "  channels: [0, 1]\n  num_classes: 3\n"
+                    f"  window_size: {SEG_WINDOW}\n  batch_size: 8\n"
+                    f"  num_pred_rnd: {SEG_SUPP}\n"
+                    f"  inference_mode: '{mode}'\n")
+    return raw, name, cfgs, cpu_model
+
+
+class ErrorRecords(logging.Handler):
+    """Keeps the messages of the ERROR records it is handed."""
+
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def png_size(path):
+    """(width, height, bit depth, color type) from a PNG's IHDR."""
+    with open(path, "rb") as f:
+        head = f.read(29)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is not a PNG")
+    return (int.from_bytes(head[16:20], "big"),
+            int.from_bytes(head[20:24], "big"), head[24], head[25])
+
+
+def check_seg_outputs(raw, name, mode, errors):
+    """The stage's artifacts for one run: the probabilities' shape and
+    dtype (float64 from the tiled merge, float32 from direct mode, as the
+    JAX package writes them), no -1 fill left, classes summing to 1, both
+    PNGs, and no failed site in the log."""
+    bad = [m for m in errors if "Error in predicting site" in m]
+    if bad:
+        raise AssertionError(f"{mode}: the stage logged {bad}")
+    probs = np.load(os.path.join(raw, f"{name}_NNProbabilities.npy"))
+    want = np.float64 if mode == "tiled" else np.float32
+    shape = (SEG_T, 3, 1, SEG_FRAME, SEG_FRAME)
+    if probs.shape != shape or probs.dtype != want:
+        raise AssertionError(f"{mode}: probabilities {probs.shape} "
+                             f"{probs.dtype}, want {shape} {want}")
+    if (probs == -1).any() or not np.isfinite(probs).all():
+        raise AssertionError(f"{mode}: -1 fill or non-finite values left")
+    sum_err = float(np.max(np.abs(probs.sum(1) - 1)))
+    if sum_err > SEG_SUM_ATOL:
+        raise AssertionError(f"{mode}: class sums off 1 by {sum_err:.3e}")
+    sizes = [png_size(os.path.join(raw, f"{name}{s}.png"))
+             for s in ("", "_NNpred")]
+    if sizes != [(SEG_FRAME, SEG_FRAME, 8, 0), (SEG_FRAME, SEG_FRAME, 8, 6)]:
+        raise AssertionError(f"{mode}: PNGs {sizes}")
+    log(f"{mode}: {name}_NNProbabilities.npy {probs.shape} {probs.dtype}, "
+        f"no -1 left, class sums within {sum_err:.3e} of 1; {name}.png "
+        f"(8-bit gray) and {name}_NNpred.png (8-bit RGBA) {SEG_FRAME}x"
+        f"{SEG_FRAME}; no failed site; mean class probabilities "
+        + json.dumps([round(float(v), 4) for v in probs.mean((0, 2, 3, 4))]))
+    return probs
+
+
+def seg_vs_cpu(torch, card_fn, cpu_fn, control_fn, what):
+    """max |d prob| of the card against the CPU, and of the TF32 control
+    (the card with cuDNN's TF32 on) against the CPU; fails if the card is
+    past SEG_PROB_ATOL or the control is not."""
+    want = cpu_fn()
+    err = float(np.max(np.abs(card_fn() - want)))
+    ctrl = float(np.max(np.abs(control_fn() - want)))
+    log(f"{what}: card vs CPU max |d prob| {err:.3e} (limit "
+        f"{SEG_PROB_ATOL}); TF32 control {ctrl:.3e} "
+        f"({ctrl / SEG_PROB_ATOL:.1f}x the limit)")
+    if not err <= SEG_PROB_ATOL:
+        raise AssertionError(f"{what}: the card disagrees with the CPU")
+    if not ctrl > SEG_PROB_ATOL:
+        raise AssertionError(f"{what}: the TF32 control lands inside the "
+                             "limit, so the check cannot see TF32")
+    return err, ctrl
+
+
+def tf32_probabilities(torch, model, x):
+    """``model.probabilities`` with cuDNN's TF32 on, outside fp32_strict."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            return torch.softmax(model.net(x), dim=1)[:, :, None] \
+                .cpu().numpy()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def conv_flops(torch, model, x):
+    """Operations of the convolutions (2 per multiply-add) of one forward
+    of ``x``, from the layer shapes met in the forward."""
+    from torch import nn
+
+    total = [0]
+
+    def hook(mod, _inp, out):
+        k = mod.weight.shape
+        total[0] += 2 * out.numel() * k[1] * k[2] * k[3]
+
+    handles = [m.register_forward_hook(hook) for m in model.net.modules()
+               if isinstance(m, nn.Conv2d)]
+    try:
+        model.probabilities(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def phase_segmentation(torch, vq, root, dev, card):
+    phase("8. segmentation path: run_segmentation -m segmentation, U-Net, "
+          "tiled and direct, on cuda")
+    from dynamorph_tpu_torch.cli import run_segmentation
+    from dynamorph_tpu_torch.seg.data import load_input
+    from dynamorph_tpu_torch.seg.inference import (_finish_whole_map,
+                                                   predict_whole_map,
+                                                   predict_whole_map_direct)
+
+    tag = f" [{card}]"
+    t_phase = t0 = time.perf_counter()
+    raw, name, cfgs, cpu_model = write_seg_site(torch, root)
+    log(f"synthetic site {name}: float64 ({SEG_T}, 3, 1, {SEG_FRAME}, "
+        f"{SEG_FRAME}) in {time.perf_counter() - t0:.2f} s; random-init "
+        f"U-Net (window {SEG_WINDOW}, channels [0, 1], 3 classes, batch norm"
+        f" perturbed, head x{SEG_HEAD_SCALE}) as model.pt")
+
+    timing_log = os.path.join(root, "seg_timing.jsonl")
+    os.environ["DYNAMORPH_TIMING_LOG"] = timing_log
+    runs = {}
+    try:
+        for mode in ("tiled", "direct"):
+            vq.vq_lookup.launches = 0
+            vq.vq_indices.launches = 0
+            np.random.seed(SEED)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            errors = ErrorRecords()
+            logging.getLogger().addHandler(errors)
+            try:
+                run_segmentation.main(["-m", "segmentation", "-c",
+                                       cfgs[mode], "--device", dev.type])
+            finally:
+                logging.getLogger().removeHandler(errors)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            with open(timing_log) as f:
+                stage_s = json.loads(f.read().splitlines()[-1])["seconds"]
+            log(f"run_segmentation {mode}: {wall:.3f} s wall for {SEG_T} "
+                f"frames (load the config, build and load the U-Net, "
+                f"segment the site, write), the site stage {stage_s:.3f} s "
+                f"({SEG_T / stage_s:.3f} frames/s); peak device memory "
+                f"{peak:.3f} GB; vq_lookup launches "
+                f"{vq.vq_lookup.launches}, vq_indices launches "
+                f"{vq.vq_indices.launches} (this path reaches no Pallas "
+                f"kernel){tag}")
+            probs = check_seg_outputs(raw, name, mode, errors.messages)
+            runs[mode] = dict(wall=wall, stage_s=stage_s, peak_gb=peak,
+                              mean_probs=probs.mean((0, 2, 3, 4)).tolist())
+    finally:
+        del os.environ["DYNAMORPH_TIMING_LOG"]
+
+    # card against CPU on full-width inputs cut from the site
+    site = load_input(os.path.join(raw, f"{name}.npy"))[:, :2]
+    card_model = seg_model(torch, SEED, dev)
+    w = SEG_WINDOW
+    tiles = np.stack([site[0, :, 0, r:r + w, c:c + w]
+                      for r in (0, 3 * w) for c in (0, 2 * w, 4 * w, 7 * w)]
+                     ).astype(np.float32)
+    x_card = torch.from_numpy(tiles).to(dev) / 65535.0
+    tiles_err = seg_vs_cpu(
+        torch, lambda: card_model.predict_raw(tiles),
+        lambda: cpu_model.predict_raw(tiles),
+        lambda: tf32_probabilities(torch, card_model, x_card),
+        f"U-Net, {len(tiles)} tiles of {w}x{w}")
+    frame = site[:1, :, :, 3 * w:5 * w, 4 * w:6 * w]
+    x_frame = torch.from_numpy(frame[:, :, 0].astype(np.float32)).to(dev) \
+        / 65535.0
+    direct_err = seg_vs_cpu(
+        torch, lambda: predict_whole_map_direct(frame, card_model),
+        lambda: predict_whole_map_direct(frame, cpu_model),
+        lambda: tf32_probabilities(torch, card_model, x_frame),
+        f"direct mode, one {2 * w}x{2 * w} frame")
+
+    # one 2048 x 2048 frame in each mode: end to end from a host array,
+    # and the device work alone
+    one = site[:1]
+    tile_flops = conv_flops(torch, card_model, x_card[:1])
+    n_tiles = (SEG_FRAME // SEG_WINDOW) ** 2
+    n_supp_tiles = (SEG_FRAME // SEG_WINDOW - 1) ** 2
+    flops = {"tiled": tile_flops * (n_tiles + SEG_SUPP * n_supp_tiles),
+             "direct": tile_flops * n_tiles}
+    x64 = torch.from_numpy(np.stack([
+        one[0, :, 0, r:r + SEG_WINDOW, c:c + SEG_WINDOW]
+        for r in range(0, SEG_FRAME, SEG_WINDOW)
+        for c in range(0, SEG_FRAME, SEG_WINDOW)]).astype(np.float32)) \
+        .to(dev) / 65535.0
+    x_full = torch.from_numpy(one[:, :, 0].astype(np.float32)).to(dev) \
+        / 65535.0
+    device_ms = {
+        "tiled": time_cuda(torch, lambda: card_model.probabilities(x64), 3)
+        + SEG_SUPP * time_cuda(
+            torch, lambda: card_model.probabilities(x64[:n_supp_tiles]), 3),
+        "direct": time_cuda(torch, lambda: card_model.probabilities(x_full),
+                            3)}
+    calls = {"tiled": lambda: predict_whole_map(
+                 one, card_model, n_supp=SEG_SUPP,
+                 rng=np.random.RandomState(SEED)),
+             "direct": lambda: predict_whole_map(one, card_model,
+                                                 mode="direct")}
+    timed = {}
+    for mode, call in calls.items():
+        call()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            call()
+            walls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        wall_ms = 1e3 * min(walls)
+        dev_ms = device_ms[mode]
+        log(f"{mode}, one {SEG_FRAME}x{SEG_FRAME} frame from a host float64 "
+            f"array: {wall_ms:.3f} ms (runs "
+            + ", ".join(f"{1e3 * w:.3f}" for w in walls)
+            + f"), {1e3 / wall_ms:.3f} frames/s; its device work alone "
+            f"{dev_ms:.3f} ms, {1e3 / dev_ms:.3f} frames/s; convolutions "
+            f"{flops[mode] / 1e12:.4f} TFLOP ({tile_flops / 1e9:.3f} GFLOP a "
+            f"{SEG_WINDOW}x{SEG_WINDOW} tile): "
+            f"{flops[mode] / dev_ms / 1e9:.2f} TFLOP/s on the device work, "
+            f"{flops[mode] / dev_ms / 1e9 / (FP32_FLOP_PER_S / 1e12):.4f} of "
+            f"the {FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s fp32 rate "
+            f"({flops[mode] / wall_ms / 1e9 / (FP32_FLOP_PER_S / 1e12):.4f} "
+            f"end to end); peak device memory {peak:.3f} GB{tag}")
+        prof = profile_steps(torch, call, 1, wall_ms, unit="frame",
+                             families=SEG_FAMILIES, other=SEG_OTHER, tag=tag)
+        timed[mode] = dict(wall_ms=wall_ms, walls_ms=[1e3 * w for w in walls],
+                           device_ms=dev_ms, tflop=flops[mode] / 1e12,
+                           fp32_share=flops[mode] / dev_ms / 1e9
+                           / (FP32_FLOP_PER_S / 1e12), peak_gb=peak,
+                           profile=None if prof is None else {
+                               "busy_ms": prof["busy_ms"],
+                               "families": prof["families"]})
+
+    # the host's share of a site: load, the float64 merge, the writes
+    site_path = os.path.join(raw, f"{name}.npy")
+    t0 = time.perf_counter()
+    loaded = load_input(site_path)[:, :2]
+    load_s = time.perf_counter() - t0
+    probs = np.load(os.path.join(raw, f"{name}_NNProbabilities.npy")) \
+        .astype(np.float64)
+    t0 = time.perf_counter()
+    _finish_whole_map(site_path, loaded, probs,
+                      os.path.join(root, "seg_rewrite"))
+    write_s = time.perf_counter() - t0
+    stage_s = runs["tiled"]["stage_s"]
+    dev_s = SEG_T * device_ms["tiled"] / 1e3
+    host_merge_s = SEG_T * (timed["tiled"]["wall_ms"]
+                            - device_ms["tiled"]) / 1e3
+    log(f"tiled site of {SEG_T} frames: stage {stage_s:.3f} s = load "
+        f"{load_s:.3f} s + writes (npy and both PNGs) {write_s:.3f} s + "
+        f"device work {dev_s:.3f} s + tile cuts, copies and the float64 "
+        f"merge {host_merge_s:.3f} s + rest "
+        f"{stage_s - load_s - write_s - dev_s - host_merge_s:.3f} s; host "
+        f"share {1 - dev_s / stage_s:.4f}{tag}")
+    log(f"phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(runs=runs, tiles_vs_cpu=tiles_err[0],
+                tiles_tf32_control=tiles_err[1], direct_vs_cpu=direct_err[0],
+                direct_tf32_control=direct_err[1], timed=timed,
+                tile_gflop=tile_flops / 1e9, load_s=load_s, write_s=write_s,
+                host_share=1 - dev_s / stage_s)
+
+
 def main() -> int:
     # one card: the first of those visible, so device_count() is what the
     # run uses (set before torch initialises CUDA)
@@ -1143,6 +1515,7 @@ def main() -> int:
         with fp32_strict():
             timed = phase_timings(torch, vq, compared, main_run, dev, ptxas)
             train_timed = phase_train_timings(torch, vq, indices, dev, ptxas)
+        seg = phase_segmentation(torch, vq, root, dev, smi)
 
     z16 = timed["z16 encode"]
     ti = train_timed["indices"]
@@ -1198,8 +1571,12 @@ def main() -> int:
         f"vs CPU step: losses {step_check['loss_rel']:.3e} relative, worst "
         f"gradient at {step_check['grad_ratio']:.3f} of its limit (TF32 "
         f"control {step_check['control']:.3f}), batch-norm buffers "
-        f"{step_check['bn_abs']:.3e}; whole script "
-        f"{time.perf_counter() - t_start:.1f} s")
+        f"{step_check['bn_abs']:.3e}; segmentation, one {SEG_FRAME}x"
+        f"{SEG_FRAME} frame: tiled {seg['timed']['tiled']['wall_ms']:.3f} ms,"
+        f" direct {seg['timed']['direct']['wall_ms']:.3f} ms, card vs CPU "
+        f"{seg['tiles_vs_cpu']:.3e} (TF32 control "
+        f"{seg['tiles_tf32_control']:.3e}); whole script "
+        f"{time.perf_counter() - t_start:.1f} s [{smi}]")
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {

@@ -4,7 +4,9 @@
 ``state_dict_from_jax`` takes the JAX package's ``(params, state)`` as
 nested dicts of **numpy** arrays (``jax.device_get`` of them) and names them
 as the reference does — the mapping of
-``dynamorph_tpu/models/torch_export.py:48-94``. It needs no jax.
+``dynamorph_tpu/models/torch_export.py:48-94`` for the VQ-VAEs, and the
+``segmentation_models_pytorch`` layout of ``models/unet.py`` for the U-Net.
+It needs no jax.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ def _t(x) -> torch.Tensor:
 
 def _conv(out: Dict, prefix: str, p) -> None:
     out[prefix + ".weight"] = _t(conv_kernel_to_torch(p["kernel"]))
-    out[prefix + ".bias"] = _t(p["bias"])
+    if "bias" in p:
+        out[prefix + ".bias"] = _t(p["bias"])
 
 
 def _deconv(out: Dict, prefix: str, p) -> None:
@@ -48,10 +51,38 @@ def _residual_stack(out: Dict, prefix: str, params, state) -> None:
         _bn(out, f"{b}.5", p["bn2"], s["bn2"])
 
 
+def _unet(params, state) -> Dict[str, torch.Tensor]:
+    """``dynamorph_tpu/models/unet.py`` -> ``models/unet.py`` names."""
+    out: Dict[str, torch.Tensor] = {}
+    _conv(out, "pre_conv", params["pre_conv"])
+    _conv(out, "encoder.conv1", params["stem"]["conv"])
+    _bn(out, "encoder.bn1", params["stem"]["bn"], state["stem"]["bn"])
+    for li in range(1, 5):
+        for b, (p, s) in enumerate(zip(params[f"layer{li}"],
+                                       state[f"layer{li}"])):
+            pre = f"encoder.layer{li}.{b}"
+            for k in ("1", "2"):
+                _conv(out, f"{pre}.conv{k}", p[f"conv{k}"])
+                _bn(out, f"{pre}.bn{k}", p[f"bn{k}"], s[f"bn{k}"])
+            if "down" in p:
+                _conv(out, f"{pre}.downsample.0", p["down"])
+                _bn(out, f"{pre}.downsample.1", p["down_bn"], s["down_bn"])
+    for i, (p, s) in enumerate(zip(params["decoder"], state["decoder"])):
+        for k in ("1", "2"):
+            _conv(out, f"decoder.blocks.{i}.conv{k}.0", p[f"conv{k}"])
+            _bn(out, f"decoder.blocks.{i}.conv{k}.1", p[f"bn{k}"],
+                s[f"bn{k}"])
+    _conv(out, "segmentation_head.0", params["head"])
+    return out
+
+
 def state_dict_from_jax(params, state, network: str,
                         channel_var=(1.0, 1.0)) -> Dict[str, torch.Tensor]:
     """JAX ``(params, state)`` (numpy leaves) -> the port's ``state_dict``
-    for ``network`` ("VQ_VAE_z16" or "VQ_VAE_z32")."""
+    for ``network`` ("VQ_VAE_z16", "VQ_VAE_z32" or "UNet";
+    ``channel_var`` is the VQ-VAEs' buffer)."""
+    if network == "UNet":
+        return _unet(params, state)
     out: Dict[str, torch.Tensor] = {}
     e, es = params["enc"], state["enc"]
     if network == "VQ_VAE_z16":

@@ -1,1 +1,2 @@
-"""Pipeline stages of the port (latent encoding so far)."""
+"""Pipeline stages of the port: latent encoding and semantic
+segmentation."""

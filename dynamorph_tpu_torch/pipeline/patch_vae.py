@@ -194,11 +194,19 @@ def process_vae(raw_folder: str, supp_folder: str, sites: Sequence[str],
     return {"output_dir": output_dir}
 
 
+def recon_sample_indices(n_patches: int, n: int = 20) -> np.ndarray:
+    """The patches that ``_save_recon_images`` renders: the JAX package's
+    draw, ``np.random.RandomState(0).randint(0, n_patches, (n,))``
+    (dynamorph_tpu/pipeline/patch_vae.py:366-367), so both packages write
+    the same ``recon_<i>.jpg`` names."""
+    return np.random.RandomState(0).randint(0, n_patches, (n,))
+
+
 def _save_recon_images(model, dataset, output_dir, n: int = 20,
                        device: Device = "cuda"):
-    """``n`` random reconstruction JPEGs (reference patch_VAE.py:464-489).
+    """``n`` random reconstruction JPEGs (reference patch_VAE.py:464-489),
+    of the patches ``recon_sample_indices`` picks.
 
-    The indices come from a ``torch.Generator`` seeded with 0.
     Object-oriented matplotlib (no pyplot globals) so it can run on an
     io.prefetch.AsyncWriter thread while the next well encodes."""
     from matplotlib.backends.backend_agg import FigureCanvasAgg
@@ -208,9 +216,7 @@ def _save_recon_images(model, dataset, output_dir, n: int = 20,
 
     dev = resolve_device(device)
     model.to(dev)
-    gen = torch.Generator().manual_seed(0)
-    random_inds = torch.randint(0, len(dataset), (n,), generator=gen).tolist()
-    for i in random_inds:
+    for i in recon_sample_indices(len(dataset), n):
         # dataset arrives raw; per-patch z-score is local to each sample
         sample = zscore_patch(dataset[i: i + 1]).astype(np.float32)
         output, _ = model.apply(torch.from_numpy(sample).to(dev))

@@ -73,6 +73,20 @@ def test_no_jax_import_in_source(path):
     assert not bad, f"{path} imports {bad}"
 
 
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_cv2_import_in_port(path):
+    """The port runs where cv2 is not installed: its PNGs come from
+    io/png.py."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+           for a in node.names if a.name.split(".")[0] == "cv2"]
+    bad += [node.module for node in ast.walk(tree)
+            if isinstance(node, ast.ImportFrom) and node.level == 0
+            and (node.module or "").split(".")[0] == "cv2"]
+    assert not bad, f"{path} imports {bad}"
+
+
 @pytest.mark.parametrize("launcher", ["_vq_lookup_cuda", "_vq_indices_cuda",
                                       "_vq_lookup_rowwise_cuda"])
 def test_kernel_wrapper_refuses_cpu_tensor(launcher):

@@ -163,8 +163,54 @@ def test_save_recon_images(well, tmp_path):
     model.load_state_dict(torch.load(os.path.join(weights, "model.pt")))
     data = load_pickle(os.path.join(raw, f"{WELL}_static_patches.pkl"))[:, :, 0]
     _save_recon_images(model, data, str(tmp_path), n=2, device="cpu")
-    inds = set(torch.randint(0, N, (2,),
-                             generator=torch.Generator().manual_seed(0))
-               .tolist())
+    inds = set(np.random.RandomState(0).randint(0, N, (2,)).tolist())
     assert sorted(os.listdir(tmp_path)) == sorted(
         f"recon_{i}.jpg" for i in inds)
+
+
+class _RecordingWell:
+    """A stand-in dataset of ``n`` patches that records which patches are
+    read and hands out a tiny blank one."""
+
+    def __init__(self, n):
+        self.n, self.read = n, []
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, sl):
+        self.read.append(sl.start)
+        return np.zeros((1, 2, 4, 4), np.float32)
+
+
+def test_recon_draw_matches_jax_on_a_full_well(monkeypatch, tmp_path):
+    """On a 2,304-patch well both packages' ``_save_recon_images`` read the
+    same 20 patches (no figure is rendered: matplotlib's Figure and canvas
+    are stubbed, the models are identities)."""
+    from unittest import mock
+
+    import matplotlib.backends.backend_agg
+    import matplotlib.figure
+
+    import dynamorph_tpu.train.data
+    from dynamorph_tpu.pipeline.patch_vae import (
+        _save_recon_images as jax_save_recon_images)
+    from dynamorph_tpu_torch.pipeline import patch_vae as port_patch_vae
+
+    monkeypatch.setattr(matplotlib.figure, "Figure", mock.MagicMock())
+    monkeypatch.setattr(matplotlib.backends.backend_agg, "FigureCanvasAgg",
+                        mock.MagicMock())
+    monkeypatch.setattr(dynamorph_tpu.train.data, "zscore_patch",
+                        lambda x: x)
+    monkeypatch.setattr(port_patch_vae, "zscore_patch", lambda x: x)
+
+    jax_well, port_well = _RecordingWell(2304), _RecordingWell(2304)
+    jax_model = mock.Mock(apply=lambda p, s, x: (x, None, None))
+    jax_save_recon_images(jax_model, {}, {}, jax_well, str(tmp_path))
+    port_model = mock.Mock(apply=lambda x: (x, None))
+    port_patch_vae._save_recon_images(port_model, port_well, str(tmp_path),
+                                      device="cpu")
+    assert len(jax_well.read) == 20
+    assert port_well.read == jax_well.read
+    assert port_patch_vae.recon_sample_indices(2304).tolist() == \
+        jax_well.read
