@@ -70,6 +70,22 @@ passed prints the final ``{"ok": true, ...}`` line:
    of the 67 TFLOP/s fp32 rate, peak memory, a torch.profiler breakdown by
    kernel family) and the host's share of a site. This path reaches no
    Pallas kernel: it runs cuDNN convolutions and batch norm in fp32.
+9. the front end to latents: on one synthetic site of 12 float64 frames of
+   2 x 2048 x 2048 with its float64 probabilities, made from 24-32 planted
+   disk cells that drift, the CLIs run the chain ``run_segmentation -m
+   instance_segmentation`` -> ``run_patch -m extract_patches`` (window
+   256) -> ``run_patch -m build_trajectories`` -> ``run_vae -m assemble``
+   (256 -> 128) -> ``run_vae -m process`` (VQ_VAE_z16, batch 512, the
+   weights of phase 4) -> ``run_vae -m trajectory_matching``. It checks
+   that every planted cell is found in every frame and is one trajectory
+   of 12 points, the well's artifacts, one vq_lookup launch per batch, the
+   latents against the CPU at phase 4's limits, and frame 0's
+   ``extract_cell_patches`` bit-equal card vs CPU; it times each frame's
+   clustering (host), extraction (device and wall) and fetch, and each
+   stage's wall time and host share. This path reaches vq_lookup through
+   ``process``; the extraction runs plain PyTorch ops (gather, two
+   convolutions, the fill, a sort for the median), as the JAX package
+   runs them through XLA.
    Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and the
    ``{"ok": true, ...}`` line.
 """
@@ -1471,6 +1487,361 @@ def phase_segmentation(torch, vq, root, dev, card):
                 host_share=1 - dev_s / stage_s)
 
 
+# ---------------------------------------------------------------- phase 9
+
+# From a site's probabilities to its well's latents, at the published sizes
+# (configs/config_example.yml: 2048 x 2048 frames, channels [0, 1], patch
+# window 256, input_size 128, VQ_VAE_z16 at batch 512) on one synthetic
+# site of 12 frames: scale is cut to one site, nothing else.
+FE_T = 12
+FE_FRAME = 2048
+FE_WINDOW = 256
+FE_INPUT = 128
+FE_SITE = "B2-Site_0"
+FE_CELLS = (24, 32)         # planted cells, inclusive
+FE_RADIUS = (15, 35)        # px, inclusive
+FE_DRIFT = 3.0              # px a frame at most
+FE_GAP = 25                 # px between cell edges at least, every frame
+FE_EDGE_CELLS = 4           # cells whose window crosses the frame edge
+
+
+def plant_cells(rng):
+    """[(centres (T, 2) int, radius)]: disk cells that drift in a straight
+    line, stay inside the frame and FE_GAP apart; the first FE_EDGE_CELLS
+    run along one frame edge each, so their windows cross it."""
+    n = rng.randint(FE_CELLS[0], FE_CELLS[1] + 1)
+    t = np.arange(FE_T)[:, None]
+    cells = []
+    for _ in range(200000):
+        if len(cells) == n:
+            return cells
+        r = rng.randint(FE_RADIUS[0], FE_RADIUS[1] + 1)
+        theta, speed = rng.uniform(0, 2 * np.pi), rng.uniform(0, FE_DRIFT)
+        v = speed * np.array([np.cos(theta), np.sin(theta)])
+        c0 = rng.uniform(r + 40, FE_FRAME - r - 40, 2)
+        if len(cells) < FE_EDGE_CELLS:        # along edge k: top, bottom,
+            k = len(cells)                     # left, right
+            axis, side = k // 2, k % 2
+            c0[axis] = r + 6 if side == 0 else FE_FRAME - r - 7
+            v[axis] = 0.0
+        path = np.rint(c0 + t * v).astype(int)
+        if path.min() < r + 1 or path.max() > FE_FRAME - r - 2:
+            continue
+        if all(np.linalg.norm(path - p, axis=1).min() >= r + rp + FE_GAP
+               for p, rp in cells):
+            cells.append((path, r))
+    raise AssertionError("could not place the synthetic cells")
+
+
+def write_front_end_site(rng, raw):
+    """``<raw>/B2-Site_0.npy``: float64 (T, 2, 1, 2048, 2048) in uint16
+    intensity units, and ``B2-Site_0_NNProbabilities.npy``: float64 (T, 3,
+    1, 2048, 2048) (background, cell, other), as the port's tiled
+    run_segmentation writes them, made from the planted cells."""
+    cells = plant_cells(rng)
+    site = np.empty((FE_T, 2, 1, FE_FRAME, FE_FRAME))
+    probs = np.empty((FE_T, 3, 1, FE_FRAME, FE_FRAME))
+    for t in range(FE_T):
+        site[t, 0, 0] = rng.randint(28000, 31000, (FE_FRAME, FE_FRAME))
+        site[t, 1, 0] = rng.randint(7000, 9000, (FE_FRAME, FE_FRAME))
+        bg = np.full((FE_FRAME, FE_FRAME), 0.97)
+        for path, r in cells:
+            cy, cx = path[t]
+            sl = (slice(cy - r, cy + r + 1), slice(cx - r, cx + r + 1))
+            yy, xx = np.mgrid[-r:r + 1, -r:r + 1]
+            disk = yy ** 2 + xx ** 2 < r ** 2
+            site[t, 0, 0][sl][disk] += 5000 + 40 * r
+            site[t, 1, 0][sl][disk] += 2000
+            bg[sl][disk] = 0.05
+        cell = np.where(bg < 0.5, 0.9, 0.02)
+        probs[t, :, 0] = np.stack([bg, cell, 1.0 - bg - cell])
+    np.save(os.path.join(raw, f"{FE_SITE}.npy"), site)
+    np.save(os.path.join(raw, f"{FE_SITE}_NNProbabilities.npy"), probs)
+    return cells, site, probs
+
+
+def check_front_end_outputs(torch, raw, supp, cells, weights):
+    """The artifacts of the five stages: every planted cell found in every
+    frame, one trajectory of 12 points each, the well's static patches,
+    file paths, relations, labels and trajectory index lists, and the
+    latents. Returns (number of patches, latents (z_before, z_after))."""
+    from dynamorph_tpu_torch.io.pickles import load_pickle
+
+    folder = os.path.join(supp, "B2-supps", FE_SITE)
+    positions = load_pickle(os.path.join(folder, "cell_positions.pkl"))
+    n = len(cells)
+    for t in range(FE_T):
+        found = np.array([pos for _, pos in positions[t]])
+        if len(found) != n:
+            raise AssertionError(f"frame {t}: {len(found)} cells found, "
+                                 f"{n} planted")
+        planted = np.array([path[t] for path, _ in cells])
+        d = np.linalg.norm(planted[:, None] - found[None], axis=-1)
+        if d.min(1).max() > 1.5 or len(set(d.argmin(1))) != n:
+            raise AssertionError(f"frame {t}: found centres do not match "
+                                 "the planted cells")
+        if not os.path.exists(os.path.join(folder, f"segmentation_{t}.png")):
+            raise AssertionError(f"segmentation_{t}.png missing")
+    trajectories, traj_positions = load_pickle(
+        os.path.join(folder, "cell_traj.pkl"))
+    if len(trajectories) != n or any(sorted(tr) != list(range(FE_T))
+                                     for tr in trajectories):
+        raise AssertionError(f"{len(trajectories)} trajectories, want {n} "
+                             f"of {FE_T} points each")
+    for tp in traj_positions:          # each follows one planted cell
+        path = np.array([tp[t] for t in range(FE_T)])
+        d = [np.abs(path - p).max() for p, _ in cells]
+        if min(d) > 1.5:
+            raise AssertionError("a trajectory follows no planted cell")
+    n_patches = n * FE_T
+    fs = load_pickle(os.path.join(raw, "B2_file_paths.pkl"))
+    static = load_pickle(os.path.join(raw, "B2_static_patches.pkl"))
+    labels = load_pickle(os.path.join(raw, "B2_static_patches_labels.pkl"))
+    rel = load_pickle(os.path.join(raw, "B2_static_patches_relations.pkl"))
+    trajs = load_pickle(os.path.join(raw, "B2_trajectories.pkl"))
+    want = (n_patches, 2, 1, FE_INPUT, FE_INPUT)
+    if len(fs) != n_patches or fs != sorted(fs) or static.shape != want \
+            or static.dtype != np.float64 or not np.isfinite(static).all():
+        raise AssertionError(f"static patches {static.shape} "
+                             f"{static.dtype}, {len(fs)} paths; want {want}")
+    if len(set(labels.tolist())) != n or \
+            sum(v == 2 for v in rel.values()) != n_patches + 2 * n * (
+                FE_T - 1):
+        raise AssertionError("relations or labels do not chain the cells")
+    if sorted(trajs) != sorted(f"{FE_SITE}/{i}" for i in range(n)) or \
+            sorted(sum(trajs.values(), [])) != list(range(n_patches)):
+        raise AssertionError("trajectories.pkl does not map each "
+                             "trajectory onto its patches")
+    model = os.path.basename(weights)
+    z_b = load_pickle(os.path.join(raw, model, "B2_latent_space.pkl"))
+    z_a = load_pickle(os.path.join(raw, model, "B2_latent_space_after.pkl"))
+    for z in (z_b, z_a):
+        if z.shape != (n_patches, 4096) or z.dtype != np.float32 or \
+                not np.isfinite(z).all():
+            raise AssertionError(f"latents {z.shape} {z.dtype}")
+    log(f"{n} planted cells found in all {FE_T} frames (centres within 1.5 "
+        f"px), {n} trajectories of {FE_T} points; static patches "
+        f"{static.shape} float64, {len(fs)} file paths, {len(rel)} relations,"
+        f" {n} labels, {len(trajs)} trajectory index lists; latents "
+        f"({n_patches}, 4096) float32, finite")
+    return n_patches, static, (z_b, z_a)
+
+
+def latents_vs_cpu(torch, static, z_b, z_a, weights):
+    """The first 64 patches' latents against the port's CPU path, at phase
+    4's limits."""
+    from dynamorph_tpu_torch.models import VQVAEz16
+    from dynamorph_tpu_torch.pipeline.patch_vae import encode_patches
+
+    cpu_model = VQVAEz16(num_inputs=2, **NET)
+    cpu_model.load_state_dict(torch.load(os.path.join(weights, "model.pt")))
+    k = min(64, len(static))
+    zb_cpu, za_cpu = encode_patches(cpu_model, static[:k, :, 0], k,
+                                    normalize="patch", device="cpu")
+    err = float(np.max(np.abs(zb_cpu - z_b[:k])))
+    if not err <= LATENT_ATOL:
+        raise AssertionError(f"z_before card vs CPU {err:.3e}")
+    cb = cpu_model.vq.w.weight.detach()
+
+    def rows(z):
+        return torch.from_numpy(z).reshape(-1, 16, 256).permute(0, 2, 1) \
+            .reshape(-1, 16)
+
+    idx_gpu, idx_cpu = codes_of(torch, rows(z_a[:k]), cb), \
+        codes_of(torch, rows(za_cpu), cb)
+    flips = torch.nonzero(idx_gpu != idx_cpu).flatten()
+    if len(flips):
+        check_flips_vs_latents(torch, "front-end z_after",
+                               rows(zb_cpu)[flips], rows(z_b[:k])[flips],
+                               cb[idx_cpu[flips]], cb[idx_gpu[flips]])
+    log(f"latents card vs CPU, first {k} patches: z_before max abs "
+        f"{err:.3e} (limit {LATENT_ATOL}); z_after {len(flips)} code flips "
+        f"of {len(idx_gpu)} positions (near-ties), "
+        f"{len(torch.unique(idx_gpu))} distinct codes")
+    return err, len(flips)
+
+
+def frame_inputs(site, probs, positions, assignments, t):
+    """Host inputs of frame t's extraction, as the stage builds them."""
+    from dynamorph_tpu_torch.ops.patch import labels_to_map
+
+    raw = site[t, :, 0].astype(np.float32)
+    bg = probs[t, 0, 0].astype(np.float32)
+    labels = labels_to_map((FE_FRAME, FE_FRAME), *assignments[t])
+    centers = np.array([pos for _, pos in positions[t]], np.int64)
+    ids = np.array([cid for cid, _ in positions[t]], np.int32)
+    return raw, bg, labels, centers, ids
+
+
+def extract_on(torch, dev, *inputs):
+    """One frame's device work from the host arrays of ``frame_inputs``,
+    uploads included."""
+    return extract_resident(torch, [torch.from_numpy(a).to(dev)
+                                    for a in inputs])
+
+
+def phase_front_end(torch, vq, root, dev, weights, card):
+    phase("9. front end to latents: instance_segmentation, extract_patches,"
+          " build_trajectories, assemble, run_vae -m process, "
+          "trajectory_matching, on cuda")
+    from dynamorph_tpu_torch.cli import run_patch, run_segmentation, run_vae
+    from dynamorph_tpu_torch.core.device import fp32_strict
+    from dynamorph_tpu_torch.io.pickles import load_pickle
+    from dynamorph_tpu_torch.models import VQVAEz16
+    from dynamorph_tpu_torch.pipeline.patch import fetch_cell_patches
+    from dynamorph_tpu_torch.pipeline.patch_vae import zscore_patch_device
+    from dynamorph_tpu_torch.track.clustering import instance_clustering
+
+    tag = f" [{card}]"
+    t_phase = t0 = time.perf_counter()
+    raw, supp = os.path.join(root, "fe_raw"), os.path.join(root, "fe_supp")
+    os.makedirs(raw)
+    cells, site, probs = write_front_end_site(np.random.RandomState(SEED + 9),
+                                              raw)
+    n = len(cells)
+    log(f"synthetic site {FE_SITE}: float64 ({FE_T}, 2, 1, {FE_FRAME}, "
+        f"{FE_FRAME}) and probabilities ({FE_T}, 3, 1, {FE_FRAME}, "
+        f"{FE_FRAME}) float64, {n} disk cells of radius "
+        f"{min(r for _, r in cells)}-{max(r for _, r in cells)} px drifting "
+        f"up to {FE_DRIFT:.0f} px a frame, {FE_EDGE_CELLS} along the frame "
+        f"edges; made and written in {time.perf_counter() - t0:.2f} s")
+    cfg = os.path.join(root, "front_end.yml")
+    with open(cfg, "w") as f:
+        f.write("segmentation_inference:\n"
+                f"  raw_dirs: ['{raw}']\n  supp_dirs: ['{supp}']\n"
+                "patch:\n"
+                f"  raw_dirs: ['{raw}']\n  supp_dirs: ['{supp}']\n"
+                f"  channels: [0, 1]\n  window_size: {FE_WINDOW}\n"
+                "latent_encoding:\n"
+                f"  raw_dirs: ['{raw}']\n  supp_dirs: ['{supp}']\n"
+                f"  weights: ['{weights}']\n  save_output: False\n"
+                f"  channels: [0, 1]\n  input_size: {FE_INPUT}\n"
+                "  network: 'VQ_VAE_z16'\n"
+                f"  num_hiddens: {NET['num_hiddens']}\n"
+                f"  num_residual_hiddens: {NET['num_residual_hiddens']}\n"
+                f"  num_embeddings: {NET['num_embeddings']}\n")
+    stages = [("instance_segmentation", run_segmentation),
+              ("extract_patches", run_patch),
+              ("build_trajectories", run_patch),
+              ("assemble", run_vae), ("process", run_vae),
+              ("trajectory_matching", run_vae)]
+    walls = {}
+    vq.vq_lookup.launches = 0
+    vq.vq_indices.launches = 0
+    for method, cli in stages:
+        t0 = time.perf_counter()
+        cli.main(["-m", method, "-c", cfg, "--device", dev.type])
+        torch.cuda.synchronize()
+        walls[method] = time.perf_counter() - t0
+    launches = {"vq_lookup": vq.vq_lookup.launches,
+                "vq_indices": vq.vq_indices.launches}
+    chain_s = sum(walls.values())
+    n_patches, static, (z_b, z_a) = check_front_end_outputs(
+        torch, raw, supp, cells, weights)
+    want = -(-n_patches // BATCH)
+    log(f"the chain: {chain_s:.3f} s for {FE_T} frames ({FE_T / chain_s:.3f}"
+        f" frames/s, {n_patches / chain_s:.1f} patches/s); vq_lookup "
+        f"launches {launches['vq_lookup']} (want {want} for {n_patches} "
+        f"patches at batch {BATCH}), vq_indices launches "
+        f"{launches['vq_indices']}{tag}")
+    if launches["vq_lookup"] != want or launches["vq_indices"] != 0:
+        raise AssertionError("the front-end chain did not launch vq_lookup "
+                             "once per batch")
+    lat_err, lat_flips = latents_vs_cpu(torch, static, z_b, z_a, weights)
+
+    # frame 0's extraction, card against CPU, bit for bit
+    folder = os.path.join(supp, "B2-supps", FE_SITE)
+    positions = load_pickle(os.path.join(folder, "cell_positions.pkl"))
+    assignments = load_pickle(os.path.join(folder,
+                                           "cell_pixel_assignments.pkl"))
+    inputs = frame_inputs(site, probs, positions, assignments, 0)
+    card_out = extract_on(torch, dev, *inputs)
+    cpu_out = extract_on(torch, torch.device("cpu"), *inputs)
+    for k in ("mat", "masked_mat", "tm", "tm2"):
+        if not torch.equal(card_out[k].cpu(), cpu_out[k]):
+            raise AssertionError(f"extract_cell_patches {k}: card differs "
+                                 "from the CPU")
+    log(f"extract_cell_patches, frame 0 ({n} cells, window {FE_WINDOW}): "
+        "mat, masked_mat, tm and tm2 bit-equal card vs CPU")
+
+    # per frame: clustering on the host, extraction on the card (device ms
+    # between CUDA events on resident inputs; wall from host arrays,
+    # uploads included), the fetch of the patches to the host
+    per = {"cluster_s": [], "extract_device_ms": [], "extract_wall_ms": [],
+           "fetch_ms": [], "fetch_mb": []}
+    png = os.path.join(root, "fe_instance_map.png")
+    for t in range(FE_T):
+        t0 = time.perf_counter()
+        instance_clustering(probs[t], instance_map=True, map_path=png)
+        per["cluster_s"].append(time.perf_counter() - t0)
+        inputs = frame_inputs(site, probs, positions, assignments, t)
+        resident = [torch.from_numpy(a).to(dev) for a in inputs]
+        torch.cuda.synchronize()
+        per["extract_device_ms"].append(time_cuda(
+            torch, lambda: extract_resident(torch, resident), 5))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = extract_on(torch, dev, *inputs)
+        torch.cuda.synchronize()
+        per["extract_wall_ms"].append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        host = fetch_cell_patches(out)
+        per["fetch_ms"].append(1e3 * (time.perf_counter() - t0))
+        per["fetch_mb"].append(sum(a.nbytes for a in host.values()) / 1e6)
+    for key, unit in (("cluster_s", "s"), ("extract_device_ms", "ms"),
+                      ("extract_wall_ms", "ms"), ("fetch_ms", "ms")):
+        v = per[key]
+        log(f"per frame, {key}: mean {np.mean(v):.4f} {unit}, min "
+            f"{min(v):.4f}, max {max(v):.4f}{tag}")
+    log(f"per frame, patches fetched: {np.mean(per['fetch_mb']):.2f} MB "
+        f"(fetch rate {np.sum(per['fetch_mb']) / np.sum(per['fetch_ms']):.3f}"
+        f" GB/s){tag}")
+
+    # per stage: wall and host share (the device works only in
+    # extract_patches and process). The device seconds are not read from
+    # the CLI run: they are the per-frame extractions re-timed above on
+    # resident inputs, and the batch count times one encode timed here.
+    card_model = VQVAEz16(num_inputs=2, **NET).to(dev)
+    card_model.load_state_dict(torch.load(os.path.join(weights, "model.pt")))
+    batch = np.zeros((BATCH, 2, FE_INPUT, FE_INPUT), np.float32)
+    batch[:min(BATCH, n_patches)] = static[:BATCH, :, 0]
+    xb = torch.from_numpy(batch).to(dev)
+    with fp32_strict(), torch.no_grad():
+        encode_ms = time_cuda(
+            torch, lambda: card_model.encode(zscore_patch_device(xb)), 5)
+    device_s = {"extract_patches": sum(per["extract_device_ms"]) / 1e3,
+                "process": want * encode_ms / 1e3}
+    shares = {}
+    for method, _ in stages:
+        dev_s = device_s.get(method, 0.0)
+        shares[method] = 1 - dev_s / walls[method]
+        log(f"stage {method}: {walls[method]:.3f} s wall, device work "
+            f"re-timed apart from the CLI run {dev_s:.4f} s, host share "
+            f"{shares[method]:.4f}{tag}")
+    total_dev = sum(device_s.values())
+    log(f"the chain's host share {1 - total_dev / chain_s:.4f} "
+        f"({total_dev:.4f} s of device work, re-timed apart from the CLI "
+        f"run, in {chain_s:.3f} s){tag}")
+    log(f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(n_cells=n, n_patches=n_patches, walls=walls,
+                launches=launches, latent_err=lat_err, latent_flips=lat_flips,
+                per_frame={k: float(np.mean(v)) for k, v in per.items()},
+                encode_ms=encode_ms, host_shares=shares,
+                host_share=1 - total_dev / chain_s)
+
+
+def extract_resident(torch, resident):
+    """One frame's device work on resident inputs: the background median
+    and the window, mask and fill program."""
+    from dynamorph_tpu_torch.ops.patch import (extract_cell_patches,
+                                               median_background)
+
+    raw, bg, labels, centers, ids = resident
+    return extract_cell_patches(raw, labels, centers, ids,
+                                median_background(raw, bg),
+                                window_size=FE_WINDOW)
+
+
 def main() -> int:
     # one card: the first of those visible, so device_count() is what the
     # run uses (set before torch initialises CUDA)
@@ -1516,6 +1887,8 @@ def main() -> int:
             timed = phase_timings(torch, vq, compared, main_run, dev, ptxas)
             train_timed = phase_train_timings(torch, vq, indices, dev, ptxas)
         seg = phase_segmentation(torch, vq, root, dev, smi)
+        front = phase_front_end(torch, vq, root, dev, main_run["weights"],
+                                smi)
 
     z16 = timed["z16 encode"]
     ti = train_timed["indices"]
@@ -1537,6 +1910,7 @@ def main() -> int:
         "rowwise_ms": z16["rowwise_ms"],
         "ptxas": ptxas["vq_lookup_kernel"],
         "launches_training_path": train_run["launches_lookup"],
+        "launches_front_end_path": front["launches"]["vq_lookup"],
         "z32": {k: timed["z32 encode"][k] for k in
                 ("ms", "ms_per_call", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "bound_share", "rowwise_ms")},
@@ -1560,6 +1934,7 @@ def main() -> int:
         "ms_per_call": ti["ms_per_call"],
         "bound_share": ti["bound_share"],
         "ptxas": ti["ptxas"],
+        "launches_front_end_path": front["launches"]["vq_indices"],
         "flips_vs_plain": {k: indices[k]["flips"] for k in indices},
         "flip_rate_vs_f64": {k: indices[k]["f64_rate"] for k in indices},
     }]
@@ -1575,7 +1950,10 @@ def main() -> int:
         f"{SEG_FRAME} frame: tiled {seg['timed']['tiled']['wall_ms']:.3f} ms,"
         f" direct {seg['timed']['direct']['wall_ms']:.3f} ms, card vs CPU "
         f"{seg['tiles_vs_cpu']:.3e} (TF32 control "
-        f"{seg['tiles_tf32_control']:.3e}); whole script "
+        f"{seg['tiles_tf32_control']:.3e}); front end to latents, "
+        f"{FE_T} frames of {FE_FRAME}x{FE_FRAME}, {front['n_cells']} cells: "
+        f"{sum(front['walls'].values()):.3f} s, host share "
+        f"{front['host_share']:.4f}; whole script "
         f"{time.perf_counter() - t_start:.1f} s [{smi}]")
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 from typing import List, Optional, Sequence
 
 from ..config import load_config
@@ -50,3 +51,17 @@ def resolve_sites(raw_dir: str, fov) -> List[str]:
         # string into characters
         return [fov] if isinstance(fov, str) else list(fov)
     return get_im_sites(raw_dir)
+
+
+def segmented_sites(raw_dir: str, sites: Sequence[str]) -> List[str]:
+    """Sites that have both the raw stack and NN probability outputs
+    (reference run_patch.py:55-60)."""
+    out = [s for s in sites
+           if os.path.exists(os.path.join(raw_dir, f"{s}.npy"))
+           and os.path.exists(os.path.join(raw_dir,
+                                           f"{s}_NNProbabilities.npy"))]
+    if not out:
+        raise AttributeError(
+            "no sites found in raw directory with preprocessed data and "
+            "matching NNProbabilities")
+    return out

@@ -1,10 +1,14 @@
-"""Latent encoding of static patches (reference run_VAE.py).
+"""VAE dataset assembly, latent encoding and trajectory matching
+(reference run_VAE.py).
 
-Usage: python -m dynamorph_tpu_torch.cli.run_vae -m process -c <config.yml>
+Usage: python -m dynamorph_tpu_torch.cli.run_vae
+       -m {assemble,process,trajectory_matching} -c <config.yml>
        [--device cuda|cpu]
 
-``assemble`` and ``trajectory_matching`` are host steps over the track
-relations; they are not ported yet and refuse with a message.
+``assemble`` and ``trajectory_matching`` are host steps over a well's
+patches and tracks; ``process`` encodes on the device. Like the reference
+(run_VAE.py:21) and the JAX package, ``assemble`` forces
+patch_type='mat'; the config's patch_type applies elsewhere.
 """
 from __future__ import annotations
 
@@ -13,23 +17,22 @@ from typing import Optional, Sequence
 from ..core.device import resolve_device
 from ..io.prefetch import AsyncWriter, Prefetcher
 from ..io.sites import group_sites_by_well
-from ..pipeline.patch_vae import load_well_inputs, process_vae
+from ..pipeline.patch_vae import (assemble_vae, load_well_inputs,
+                                  process_vae, trajectory_matching)
 from .common import (parse_method_config, resolve_sites, setup_logging,
                      shard_work)
-
-_NOT_PORTED = ("run_vae -m {method} is not ported yet: it runs on the host "
-               "over track/relations.py and comes with ROADMAP slice A2; "
-               "use dynamorph_tpu.cli.run_vae for it")
 
 
 def run_for_dirs(method: str, raw_dir: str, supp_dir: str, config,
                  device: str = "cuda") -> None:
     le = config.latent_encoding
-    if method in ("assemble", "trajectory_matching"):
-        raise NotImplementedError(_NOT_PORTED.format(method=method))
-    if method != "process":
+    if method not in ("assemble", "process", "trajectory_matching"):
         raise ValueError(f"unknown method {method!r}")
-    if not le.weights:
+    if method in ("assemble", "trajectory_matching") and not supp_dir:
+        raise AttributeError(
+            f"supplementary directory must be specified when method = "
+            f"{method}")
+    if method == "process" and not le.weights:
         raise AttributeError(
             "VQ-VAE weights path must be specified when method = process")
     dev = resolve_device(device)
@@ -37,6 +40,15 @@ def run_for_dirs(method: str, raw_dir: str, supp_dir: str, config,
     sites = resolve_sites(raw_dir, le.fov)
     all_wells = group_sites_by_well(sites)
     wells = {w: all_wells[w] for w in shard_work(sorted(all_wells))}
+    if method == "assemble":
+        for well_sites in wells.values():
+            assemble_vae(raw_dir, supp_dir, well_sites, config,
+                         patch_type="mat")
+        return
+    if method == "trajectory_matching":
+        for well_sites in wells.values():
+            trajectory_matching(raw_dir, supp_dir, well_sites)
+        return
     # prefetch the next well's pickles while this one encodes, and drain
     # this well's latent pickle saves on a writer thread while the next
     # well encodes

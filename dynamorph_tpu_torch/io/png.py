@@ -5,8 +5,8 @@ The JAX package writes its segmentation previews with ``cv2.imwrite`` on
 float64 arrays (``dynamorph_tpu/seg/inference.py:245-248``,
 ``dynamorph_tpu/seg/data.py:243``). cv2 stores floats as 8-bit with a
 saturating round half to even (0.5 -> 0, 1.5 -> 2, 254.5 -> 254, 300 ->
-255, -3 -> 0), a 2-D array as gray and a 4-channel one as BGRA; a uint16
-array it stores as 16-bit gray. ``write_png`` does the same; its bytes are
+255, -3 -> 0), a 2-D array as gray, a 3-channel one as BGR and a
+4-channel one as BGRA; a uint16 array it stores as 16-bit gray. ``write_png`` does the same; its bytes are
 its own (filter 0 on every row, zlib level 1).
 """
 from __future__ import annotations
@@ -37,10 +37,14 @@ def _pixels(image: np.ndarray) -> np.ndarray:
 
 
 def write_png(path: str, image: np.ndarray) -> None:
-    """Write a 2-D (gray) or (H, W, 4) BGRA image as cv2.imwrite would."""
+    """Write a 2-D (gray), (H, W, 3) BGR or (H, W, 4) BGRA image as
+    cv2.imwrite would."""
     a = _pixels(image)
     if a.ndim == 2:
         color_type = 0
+    elif a.ndim == 3 and a.shape[2] == 3:
+        color_type = 2
+        a = a[:, :, ::-1]                      # BGR -> RGB
     elif a.ndim == 3 and a.shape[2] == 4:
         color_type = 6
         a = a[:, :, [2, 1, 0, 3]]              # BGRA -> RGBA

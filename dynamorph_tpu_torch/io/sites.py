@@ -28,3 +28,10 @@ def group_sites_by_well(sites: List[str]) -> Dict[str, List[str]]:
     for s in sorted(sites):
         wells[well_of(s)].append(s)
     return dict(wells)
+
+
+def site_supp_folder(supp_folder: str, site: str) -> str:
+    """``<supp>/<well>-supps/<site>``: where a site's instance
+    segmentation, patches and tracks live (reference
+    pipeline/patch_VAE.py:48)."""
+    return os.path.join(supp_folder, f"{well_of(site)}-supps", site)

@@ -1,2 +1,3 @@
-"""Pipeline stages of the port: latent encoding and semantic
-segmentation."""
+"""Pipeline stages of the port: semantic and instance segmentation, patch
+extraction, tracking, VAE dataset assembly, latent encoding and trajectory
+matching."""

@@ -1,6 +1,11 @@
-"""Latent encoding of a well's static patches — the port of the VAE branch
-of ``dynamorph_tpu/pipeline/patch_vae.py::process_vae`` (reference
-pipeline/patch_VAE.py:343-508, ``run_VAE -m process``).
+"""VAE dataset assembly, latent encoding and trajectory matching, the port
+of ``dynamorph_tpu/pipeline/patch_vae.py`` (reference pipeline/patch_VAE.py:
+assemble_VAE :115-175, process_VAE :343-508, combine_dataset :178-254,
+trajectory_matching :257-318; HiddenStateExtractor/vq_vae_supp.py:114-146).
+
+Assembly, combination and trajectory matching are host steps over pickles,
+as in the JAX package; the 256 -> 128 resize is cv2's bilinear rule
+(``_resize_chw``) computed with numpy.
 
 Patches are encoded in batches on the card: per-patch z-score on the
 device, the VQ-VAE encoder, the codebook lookup kernel
@@ -13,23 +18,218 @@ from __future__ import annotations
 
 import logging
 import os
-from typing import Dict, Optional, Sequence, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..core.device import resolve_device
 from ..core.profiling import stage_timer
-from ..io.compact import load_array_any, save_array, storage_path
-from ..io.pickles import load_pickle
-from ..io.sites import well_of
+from ..io.compact import (load_array_any, load_stack_any, save_array,
+                          storage_path)
+from ..io.pickles import load_pickle, save_pickle
+from ..io.sites import site_supp_folder, well_of
 from ..models.jax_import import load_reference_checkpoint
 from ..models.registry import get_model_cls
+from ..track.relations import generate_trajectory_relations, patch_name_to_tuple
 from ..train.data import zscore_patch
 
 log = logging.getLogger(__name__)
 
 Device = Union[str, torch.device]
+
+
+def _linear_taps(n_src: int, n_dst: int, clamp: bool):
+    """cv2's INTER_LINEAR taps along one axis: the sample position
+    ``(dst + 0.5) * scale - 0.5`` in float32, its floor i and weights
+    ``(1 - w, w)`` as float32 values, from source rows (i, i + 1) clipped
+    to the axis. ``clamp`` (cv2 does it along x only) also sets w = 0 where
+    i falls off either end."""
+    scale = 1.0 / (n_dst / n_src)
+    f = ((np.arange(n_dst) + 0.5) * scale - 0.5).astype(np.float32)
+    i = np.floor(f).astype(np.int64)
+    w = f - i.astype(np.float32)
+    if clamp:
+        off = (i < 0) | (i >= n_src - 1)
+        i[off] = np.where(i[off] < 0, 0, n_src - 1)
+        w[off] = 0
+    w0 = (np.float32(1) - w).astype(np.float64)
+    return (np.clip(i, 0, n_src - 1), np.clip(i + 1, 0, n_src - 1), w0,
+            w.astype(np.float64))
+
+
+def _resize_chw(dat: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
+    """cv2's bilinear resize (``cv2.resize(x, hw)``, INTER_LINEAR; hw is
+    (width, height) as cv2 takes it) over the trailing (H, W) of a
+    (..., H, W) float array, computed with numpy in float64 (reference
+    cv2_fn_wrapper, extract_patches.py:21-37).
+
+    The arithmetic is OpenCV's generic CPU path, which cv2 takes for the
+    pipeline's 2-channel patches: an exact 2x downscale in both axes is
+    its fast area mean, ``(((a + b) + c) + d) * 0.25`` over each 2 x 2
+    block; any other size is a horizontal pass, then a vertical one, each
+    ``S0 * (1 - w) + S1 * w`` with float32 positions and weights. On
+    2-channel arrays it equals cv2 bit for bit at every size. cv2 5.0
+    computes 1-, 3- and 4-channel arrays another way; there the two agree
+    exactly at integer factors on pipeline values (multiples of 0.5 below
+    2**16, where every form is exact), and within 2.5e-6 of the largest
+    magnitude otherwise.
+    """
+    dat = np.asarray(dat, dtype=np.float64)
+    dst_w, dst_h = hw
+    src_h, src_w = dat.shape[-2:]
+    if 2 * dst_w == src_w and 2 * dst_h == src_h:
+        a, b = dat[..., 0::2, 0::2], dat[..., 0::2, 1::2]
+        c, d = dat[..., 1::2, 0::2], dat[..., 1::2, 1::2]
+        return (((a + b) + c) + d) * 0.25
+    x0, x1, wx0, wx1 = _linear_taps(src_w, dst_w, clamp=True)
+    y0, y1, wy0, wy1 = _linear_taps(src_h, dst_h, clamp=False)
+    h = dat[..., x0] * wx0 + dat[..., x1] * wx1
+    return h[..., y0, :] * wy0[:, None] + h[..., y1, :] * wy1[:, None]
+
+
+def prepare_dataset(dat_fs: Sequence[str], channels=None,
+                    input_shape: Tuple[int, int] = (128, 128),
+                    key: str = "masked_mat"):
+    """Read stacks_*.pkl dicts, select channels, resize to ``input_shape``,
+    stack sorted by patch name (reference vq_vae_supp.py:114-146)."""
+    tensors = {}
+    for dat_f in dat_fs:
+        log.info("loading data %s", dat_f)
+        file_dats = load_stack_any(dat_f)
+        for k, v in file_dats.items():
+            dat = np.asarray(v[key])
+            cs = np.arange(dat.shape[0]) if channels is None \
+                else np.asarray(channels)
+            dat = dat[cs].astype(float)
+            tensors[k] = _resize_chw(dat, input_shape)
+    ts_keys = sorted(tensors.keys())
+    if not ts_keys:
+        raise ValueError(
+            "no patches found in any stacks_*.pkl — upstream segmentation/"
+            "instance clustering produced no cells")
+    dataset = np.stack([tensors[k] for k in ts_keys], 0)
+    return dataset, ts_keys
+
+
+def assemble_vae(raw_folder: str, supp_folder: str, sites: Sequence[str],
+                 config, patch_type: Optional[str] = None) -> None:
+    """Assemble a well's VAE input dataset, relations and labels
+    (reference pipeline/patch_VAE.py:115-175): ``<well>_file_paths.pkl``,
+    ``<well>_static_patches.pkl`` (or .npz with ``storage: compact``),
+    ``<well>_static_patches_relations.pkl`` and
+    ``<well>_static_patches_labels.pkl`` in ``raw_folder``."""
+    le = config.latent_encoding
+    channels = le.channels
+    patch_type = patch_type or le.patch_type
+    if len(channels) == 0:
+        raise ValueError("At least one channel must be specified")
+    if len({well_of(s) for s in sites}) != 1:
+        raise ValueError("Sites should be from a single well/condition")
+    well = well_of(sites[0])
+
+    storage = le.storage
+    dat_fs = []
+    for site in sites:
+        folder = site_supp_folder(supp_folder, site)
+        # stacks may exist as .pkl (reference contract) and/or .npz
+        # (compact storage): dedupe by stem, preferring the configured
+        # storage's extension when both are present
+        stems: dict = {}
+        prefer_ext = ".npz" if storage == "compact" else ".pkl"
+        for f in sorted(os.listdir(folder)):
+            stem, ext = os.path.splitext(f)
+            if not f.startswith("stacks") or ext not in (".pkl", ".npz"):
+                continue
+            if stem not in stems or ext == prefer_ext:
+                stems[stem] = f
+        dat_fs.extend(os.path.join(folder, stems[s]) for s in sorted(stems))
+
+    input_size = int(le.input_size or 128)
+    dataset, fs = prepare_dataset(dat_fs, channels=channels, key=patch_type,
+                                  input_shape=(input_size, input_size))
+
+    save_pickle(fs, os.path.join(raw_folder, f"{well}_file_paths.pkl"))
+    save_array(dataset,
+               storage_path(
+                   os.path.join(raw_folder, f"{well}_static_patches.pkl"),
+                   storage),
+               storage=storage)
+
+    well_supp = os.path.join(supp_folder, f"{well}-supps")
+    relations, labels = generate_trajectory_relations(fs, sites, well_supp)
+    save_pickle(relations,
+                os.path.join(raw_folder,
+                             f"{well}_static_patches_relations.pkl"))
+    save_pickle(labels,
+                os.path.join(raw_folder, f"{well}_static_patches_labels.pkl"))
+
+
+def combine_dataset(input_dataset_names: Sequence[str],
+                    output_dataset_name: str, save_mask: bool = True) -> None:
+    """Merge several per-well datasets into one, sorted by patch name
+    (reference pipeline/patch_VAE.py:178-254)."""
+    separate_fs, separate_dataset = [], []
+    separate_mask, separate_relations = [], []
+    for n in input_dataset_names:
+        separate_fs.append(load_pickle(n + "_file_paths.pkl"))
+        separate_dataset.append(load_array_any(n + "_static_patches.pkl"))
+        separate_relations.append(
+            load_pickle(n + "_static_patches_relations.pkl"))
+        if save_mask:
+            separate_mask.append(
+                load_array_any(n + "_static_patches_mask.pkl"))
+
+    all_fs = sorted(sum(separate_fs, []))
+    if len(all_fs) != len(set(all_fs)):
+        raise ValueError("Found patches with identical name")
+    save_pickle(all_fs, output_dataset_name + "_file_paths.pkl")
+
+    name_to_src = {n: (i, j) for i, fs in enumerate(separate_fs)
+                   for j, n in enumerate(fs)}
+    name_to_idx = {n: i for i, n in enumerate(all_fs)}
+    order = [name_to_src[n] for n in all_fs]
+
+    all_dataset = np.stack([separate_dataset[i][j] for i, j in order], 0)
+    save_pickle(all_dataset, output_dataset_name + "_static_patches.pkl")
+    if save_mask:
+        all_mask = np.stack([separate_mask[i][j] for i, j in order], 0)
+        save_pickle(all_mask, output_dataset_name + "_static_patches_mask.pkl")
+
+    all_relations = {}
+    for fs, relation in zip(separate_fs, separate_relations):
+        for (a, b), v in relation.items():
+            all_relations[(name_to_idx[fs[a]], name_to_idx[fs[b]])] = v
+    save_pickle(all_relations,
+                output_dataset_name + "_static_patches_relations.pkl")
+
+
+def trajectory_matching(summary_folder: str, supp_folder: str,
+                        sites: Sequence[str]) -> None:
+    """Map each site's cell trajectories to lists of patch indices into the
+    well's ``file_paths`` and save ``<well>_trajectories.pkl`` (reference
+    pipeline/patch_VAE.py:257-318). A trajectory is kept when more than
+    95% of its frames have a patch."""
+    if len({well_of(s) for s in sites}) != 1:
+        raise ValueError("Sites should be from a single well/condition")
+    well = well_of(sites[0])
+    fs = load_pickle(os.path.join(summary_folder, f"{well}_file_paths.pkl"))
+    patch_id_mapping = {patch_name_to_tuple(f, sites): i
+                        for i, f in enumerate(fs)}
+
+    site_trajs = {}
+    for site in sites:
+        trajs = load_pickle(os.path.join(site_supp_folder(supp_folder, site),
+                                         "cell_traj.pkl"))
+        for i, t in enumerate(trajs[0]):
+            name = site + "/" + str(i)
+            traj = [patch_id_mapping[(site, t_point, t[t_point])]
+                    for t_point in sorted(t.keys())
+                    if (site, t_point, t[t_point]) in patch_id_mapping]
+            if len(traj) > 0.95 * len(t):
+                site_trajs[name] = traj
+    save_pickle(site_trajs,
+                os.path.join(summary_folder, f"{well}_trajectories.pkl"))
 
 
 def zscore_patch_device(x: torch.Tensor) -> torch.Tensor:

@@ -87,6 +87,102 @@ def test_no_cv2_import_in_port(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def _import_time_modules(tree):
+    """Top-level names of the modules imported when the module itself is
+    imported: every import outside a function body."""
+    found = []
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import):
+            found += [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            found.append((node.module or "").split(".")[0])
+        stack.extend(ast.iter_child_nodes(node))
+    return found
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_sklearn_or_module_level_matplotlib_in_port(path):
+    """The card's machine has neither sklearn nor matplotlib: the port
+    never imports sklearn (DBSCAN is native/grid_dbscan.cpp), and imports
+    matplotlib only inside the functions that draw an optional figure."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    anywhere = [a.name for node in ast.walk(tree)
+                if isinstance(node, ast.Import) for a in node.names]
+    anywhere += [node.module or "" for node in ast.walk(tree)
+                 if isinstance(node, ast.ImportFrom) and node.level == 0]
+    assert not [m for m in anywhere if m.split(".")[0] == "sklearn"], path
+    assert "matplotlib" not in _import_time_modules(tree), path
+
+
+_BUILD_AT_ONCE = r"""
+import os, sys, time
+from pathlib import Path
+import numpy as np
+import dynamorph_tpu_torch.native as native
+build_dir = Path(sys.argv[1])
+native.BUILD_DIR = build_dir
+(build_dir.parent / f"ready-{os.getpid()}").touch()
+deadline = time.time() + 60
+while len(list(build_dir.parent.glob("ready-*"))) < 2:
+    assert time.time() < deadline
+    time.sleep(0.01)
+from dynamorph_tpu_torch.native.dbscan import grid_dbscan
+from dynamorph_tpu_torch.native.lap import lap_solve
+print(lap_solve(np.array([[1.0, 0.0], [0.0, 1.0]]))[1].tolist(),
+      grid_dbscan(np.array([[0, 0], [0, 1], [9, 9]]), 1.5, 2,
+                  shape=(10, 10)).tolist())
+"""
+
+
+def test_native_libraries_build_once_under_a_lock(tmp_path):
+    """The native libraries build into build/native/ (never the package
+    directory), named by a hash of source and flags; two processes that
+    build at once both load the one library the lock lets one of them
+    build."""
+    from dynamorph_tpu_torch import native
+
+    assert native.BUILD_DIR == ROOT / "build" / "native"
+    for name in ("grid_dbscan", "lap"):
+        p = native.library_path(name)
+        assert p.parent == native.BUILD_DIR and p.name.startswith(
+            f"lib{name}-") and p.suffix == ".so"
+    build_dir = tmp_path / "native"
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    procs = [subprocess.Popen([sys.executable, "-c", _BUILD_AT_ONCE,
+                               str(build_dir)], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(2)]
+    outs = [p.communicate(timeout=240) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-4000:]
+        assert out.split() == ["[1,", "0]", "[0,", "0,", "-1]"]
+    built = sorted(f.name for f in build_dir.iterdir())
+    assert built == sorted([native.library_path("grid_dbscan").name,
+                            native.library_path("lap").name,
+                            "grid_dbscan.lock", "lap.lock"])
+    assert not list(native.SRC_DIR.glob("*.so"))
+
+
+def test_native_build_failure_raises(tmp_path, monkeypatch):
+    """A failed g++ build raises with the compiler's output: nothing falls
+    back to another implementation."""
+    from dynamorph_tpu_torch import native
+
+    (tmp_path / "broken.cpp").write_text("this is not C++\n")
+    monkeypatch.setattr(native, "SRC_DIR", tmp_path)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="native build of broken failed"):
+        native.build("broken")
+    assert not list((tmp_path / "build").glob("*.so"))
+
+
 @pytest.mark.parametrize("launcher", ["_vq_lookup_cuda", "_vq_indices_cuda",
                                       "_vq_lookup_rowwise_cuda"])
 def test_kernel_wrapper_refuses_cpu_tensor(launcher):

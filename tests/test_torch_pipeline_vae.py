@@ -18,7 +18,6 @@ from dynamorph_tpu.config.schema import (LatentEncodingConfig as JaxLE,
 from dynamorph_tpu.models import VQVAEz16 as JaxZ16
 from dynamorph_tpu.pipeline.patch_vae import process_vae as jax_process_vae
 from dynamorph_tpu_torch.cli import run_vae
-from dynamorph_tpu_torch.config import load_config
 from dynamorph_tpu_torch.io.pickles import load_pickle, save_pickle
 from dynamorph_tpu_torch.models import VQVAEz16
 from dynamorph_tpu_torch.models.jax_import import state_dict_from_jax
@@ -116,9 +115,50 @@ def test_cli_process_matches_library(well, tmp_path):
     assert sorted(via_cli) == sorted(direct)
     for f in direct:
         np.testing.assert_array_equal(via_cli[f], direct[f])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        run_vae.run_for_dirs("assemble", raw, supp, load_config(str(cfg)),
-                             device="cpu")
+
+
+def test_cli_assemble_then_process(well, tmp_path):
+    """run_vae -m assemble --device cpu builds a well from per-site
+    stacks_<t>.pkl and cell_traj.pkl (the unmasked "mat" patches, resized
+    256 -> 128), and run_vae -m process encodes what it wrote."""
+    _, _, weights = well
+    raw, supp = tmp_path / "raw", tmp_path / "supp"
+    raw.mkdir()
+    r = np.random.RandomState(2)
+    for site in SITES:
+        folder = supp / f"{WELL}-supps" / site
+        folder.mkdir(parents=True)
+        np.save(raw / f"{site}.npy", np.zeros((2, 2, 1, 4, 4)))
+        for t in range(2):
+            save_pickle({str(folder / f"{t}_{cid}.h5"): {
+                "mat": r.randint(0, 65535, (4, 1, 256, 256)) * 1.0,
+                "masked_mat": np.zeros((4, 1, 256, 256))}
+                for cid in (3, 7)}, str(folder / f"stacks_{t}.pkl"))
+        save_pickle([[{0: 3, 1: 7}], [{0: np.array([5, 5]),
+                                       1: np.array([6, 6])}]],
+                    str(folder / "cell_traj.pkl"))
+    cfg = tmp_path / "cfg.yml"
+    cfg.write_text(
+        "latent_encoding:\n"
+        f"  raw_dirs: ['{raw}']\n  supp_dirs: ['{supp}']\n"
+        f"  weights: ['{weights}']\n  save_output: False\n"
+        "  network: 'VQ_VAE_z16'\n  num_hiddens: 16\n"
+        "  num_residual_hiddens: 32\n  num_embeddings: 64\n")
+    run_vae.main(["-m", "assemble", "-c", str(cfg), "--device", "cpu"])
+    fs = load_pickle(str(raw / f"{WELL}_file_paths.pkl"))
+    data = load_pickle(str(raw / f"{WELL}_static_patches.pkl"))
+    assert fs == sorted(fs) and len(fs) == 8
+    assert data.shape == (8, 2, 1, 128, 128) and data.dtype == np.float64
+    assert data.any()                  # "mat", not the zero "masked_mat"
+    labels = load_pickle(str(raw / f"{WELL}_static_patches_labels.pkl"))
+    relations = load_pickle(
+        str(raw / f"{WELL}_static_patches_relations.pkl"))
+    i, j = fs.index(str(supp / f"{WELL}-supps" / SITES[0] / "0_3.h5")), \
+        fs.index(str(supp / f"{WELL}-supps" / SITES[0] / "1_7.h5"))
+    assert labels[i] == labels[j] and relations[(i, j)] == 2
+    run_vae.main(["-m", "process", "-c", str(cfg), "--device", "cpu"])
+    z = load_pickle(str(raw / "weights" / f"{WELL}_latent_space.pkl"))
+    assert z.shape == (8, 16 * 16 * 16) and np.isfinite(z).all()
 
 
 def test_entry_points_refuse_cpu_unless_asked(well, tmp_path):

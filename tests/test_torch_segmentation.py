@@ -288,16 +288,18 @@ def _pred_mat(d1):
 
 
 @pytest.mark.parametrize("case", ["gray_rounding", "gray_random", "bgra",
-                                  "uint16", "uint8"])
+                                  "bgr", "uint16", "uint8"])
 def test_png_matches_cv2(case, tmp_path):
     """write_png decodes to cv2.imwrite's pixels: float64 gray with cv2's
-    saturating round half to even, 4-channel BGRA, and integer images."""
+    saturating round half to even, 3-channel BGR (the instance maps),
+    4-channel BGRA, and integer images."""
     r = np.random.RandomState(5)
     image = {
         "gray_rounding": np.array([[0.5, 1.5, 2.5, 254.5, 300.0, -3.0],
                                    [0.49, 0.51, 255.5, 253.5, 1e9, -1e9]]),
         "gray_random": r.randn(37, 53) * 200 + 100,
         "bgra": r.rand(19, 23, 4) * 300 - 20,
+        "bgr": r.randint(0, 256, (13, 11, 3)).astype(np.uint8),
         "uint16": r.randint(0, 65536, (17, 29)).astype(np.uint16),
         "uint8": r.randint(0, 256, (5, 7)).astype(np.uint8),
     }[case]
@@ -330,8 +332,7 @@ def test_time_slices_refused(models):
         predict_whole_map(_stack(6), pm, time_slices=3)
 
 
-@pytest.mark.parametrize("method", ["instance_segmentation",
-                                    "segmentation_validation"])
+@pytest.mark.parametrize("method", ["segmentation_validation"])
 def test_unported_methods_refused(method, tmp_path):
     yml = tmp_path / "cfg.yml"
     yml.write_text("segmentation_inference:\n  raw_dirs: []\n")
