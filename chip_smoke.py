@@ -86,6 +86,28 @@ passed prints the final ``{"ok": true, ...}`` line:
    ``process``; the extraction runs plain PyTorch ops (gather, two
    convolutions, the fill, a sort for the median), as the JAX package
    runs them through XLA.
+10. raw TIFFs to PCs through the stage graph: phase 9's planted site
+   written as raw microscope files (12 frames x Retardance, Phase2D and
+   Brightfield, single-page uncompressed uint16 TIFFs of 2048 x 2048 in a
+   position directory), then ``run_preproc`` (the npy must equal the
+   frames bit for bit, in their slots), ``run_pipeline --stages
+   segmentation`` (the U-Net of phase 8), the planted probabilities in
+   place of the random U-Net's, ``run_pipeline`` over
+   instance_segmentation ... trajectory_matching and ``pca`` (fit), and
+   ``run_dim_reduction -m pca`` (the transform, equal to the fitted model's
+   bit for bit). It checks phase 9's artifacts, one vq_lookup launch per
+   batch, the latents against the CPU, the PCA model and the returned
+   stage lists, and prints each stage's wall time (from the orchestrator's
+   ``stage_timer`` log), its device time (from a torch.profiler trace of
+   the run) and host share, and the peak device memory. Then a
+   plate-scale PCA fit of 55,296 x 4,096 fp32 latents synthesised on the
+   card (24 wells of 2,304 patches; fit, transform; projected variance
+   and orthonormality in float64 within 1e-4; the SVD alone timed and
+   checked with cuSOLVER's gesvd, gesvda and gesvdj; the same plate
+   without noise, rank-deficient, fitted and checked too), and the UMAP
+   reference grid (n_neighbors 15, 50, 200) on 9,216 of them (kNN, fuzzy
+   set, init, optimisation timed; the 15-neighbour fit repeated bit-equal;
+   the card's kNN equal to the CPU's on 1,024 rows, ties aside).
    Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and the
    ``{"ok": true, ...}`` line.
 """
@@ -906,7 +928,9 @@ def profile_steps(torch, step, n_steps, step_ms, unit="step",
         torch.cuda.synchronize()
     kernels = {}
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # a record_function range's device-side span is no kernel
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                e.is_user_annotation:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -1538,6 +1562,15 @@ def write_front_end_site(rng, raw):
     intensity units, and ``B2-Site_0_NNProbabilities.npy``: float64 (T, 3,
     1, 2048, 2048) (background, cell, other), as the port's tiled
     run_segmentation writes them, made from the planted cells."""
+    cells, site, probs = front_end_arrays(rng)
+    np.save(os.path.join(raw, f"{FE_SITE}.npy"), site)
+    np.save(os.path.join(raw, f"{FE_SITE}_NNProbabilities.npy"), probs)
+    return cells, site, probs
+
+
+def front_end_arrays(rng):
+    """(planted cells, the (T, 2, 1, 2048, 2048) site, the (T, 3, 1, 2048,
+    2048) probabilities) of ``write_front_end_site``."""
     cells = plant_cells(rng)
     site = np.empty((FE_T, 2, 1, FE_FRAME, FE_FRAME))
     probs = np.empty((FE_T, 3, 1, FE_FRAME, FE_FRAME))
@@ -1555,8 +1588,6 @@ def write_front_end_site(rng, raw):
             bg[sl][disk] = 0.05
         cell = np.where(bg < 0.5, 0.9, 0.02)
         probs[t, :, 0] = np.stack([bg, cell, 1.0 - bg - cell])
-    np.save(os.path.join(raw, f"{FE_SITE}.npy"), site)
-    np.save(os.path.join(raw, f"{FE_SITE}_NNProbabilities.npy"), probs)
     return cells, site, probs
 
 
@@ -1842,6 +1873,549 @@ def extract_resident(torch, resident):
                                 window_size=FE_WINDOW)
 
 
+# ---------------------------------------------------------------- phase 10
+
+# From raw TIFFs to PCs through the stage graph at the published sizes: one
+# synthetic site in the default raw layout (preprocess pos_dir: true,
+# single-page uncompressed uint16 TIFFs img_<channel>_t<ttt>_z<zzz>.tif,
+# channels Retardance, Phase2D and Brightfield, 2048 x 2048), made from
+# phase 9's planted cells, 12 frames (phase 9's count, uncut); then a
+# plate-scale PCA fit and the UMAP reference grid on synthetic latents.
+PP_CHANNELS = ("Retardance", "Phase2D", "Brightfield")
+PP_Z = 0
+GRAPH_STAGES = ["instance_segmentation", "extract_patches",
+                "build_trajectories", "assemble", "process",
+                "trajectory_matching", "pca"]
+PLATE_WELLS = 24            # a plate of wells of phase 4's 2,304 patches
+PLATE_PATCHES = 2304
+LATENT_LEN = 16 * 16 * 16   # the z16 latent length
+PLATE_RANK = 64             # factors of the synthetic latents
+PCA_RTOL = 1e-4             # projected variance vs explained_variance_
+PCA_ORTHO_ATOL = 1e-4       # components' C C^T vs I
+UMAP_WELLS = 4
+UMAP_GRID = (15, 50, 200)   # the reference grid (a 1.58, b 0.9)
+UMAP_KNN_ROWS = 1024        # rows of the card-vs-CPU kNN check
+UMAP_DIST_RTOL = 1e-5       # card vs CPU kNN distances
+
+
+def write_raw_tiffs(rng, image_dir):
+    """Phase 9's planted site as raw microscope files: per frame and
+    channel ``<image_dir>/B2-Site_0/img_<channel>_t<ttt>_z000.tif``, one
+    uncompressed uint16 page. Phase2D and Retardance are phase 9's two
+    channels, Brightfield a third with the cells brighter. Returns (cells,
+    {channel: (T, 2048, 2048) uint16}, the planted probabilities)."""
+    from dynamorph_tpu_torch.io.tiff import write_multipage_tiff
+
+    cells, site, probs = front_end_arrays(rng)
+    frames = {"Phase2D": site[:, 0, 0].astype(np.uint16),
+              "Retardance": site[:, 1, 0].astype(np.uint16)}
+    if not (np.array_equal(frames["Phase2D"], site[:, 0, 0])
+            and np.array_equal(frames["Retardance"], site[:, 1, 0])):
+        raise AssertionError("the planted site is not in uint16 range")
+    frames["Brightfield"] = (18000 + rng.randint(0, 1500, site[:, 0, 0].shape)
+                             + 4000 * (probs[:, 1, 0] > 0.5)
+                             ).astype(np.uint16)
+    folder = os.path.join(image_dir, FE_SITE)
+    os.makedirs(folder)
+    for chan in PP_CHANNELS:
+        for t in range(FE_T):
+            write_multipage_tiff(os.path.join(
+                folder, f"img_{chan}_t{t:03d}_z{PP_Z:03d}.tif"),
+                frames[chan][t:t + 1])
+    return cells, frames, probs
+
+
+def stage_seconds(timing_log):
+    """{stage: seconds} of the orchestrator's own stage_timer records
+    (those without a site or well: the stages' inner timers carry one)."""
+    out = {}
+    with open(timing_log) as f:
+        for line in f:
+            rec = json.loads(line)
+            if set(rec) == {"stage", "seconds", "time"}:
+                out[rec["stage"]] = out.get(rec["stage"], 0.0) + \
+                    rec["seconds"]
+    return out
+
+
+def merged(intervals):
+    """Sorted, disjoint union of (start, end) intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def stage_device_seconds(torch, prof, stages):
+    """{stage: seconds the device was busy inside the stage}, from a
+    torch.profiler trace of the run: the union of the device's kernel and
+    copy intervals that overlap the union of the stage's ranges
+    (``stage_timer`` opens one ``record_function`` per stage, and the
+    stages' inner timers open more of the same name). The ranges' own
+    device-side spans (user annotations, first to last kernel) are not
+    device work. None when the trace holds no device event."""
+    events = prof.events()
+    busy = merged((e.time_range.start, e.time_range.end) for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.is_user_annotation)
+    if not busy:
+        return None
+    out = {}
+    for stage in stages:
+        ranges = merged(
+            (e.time_range.start, e.time_range.end) for e in events
+            if e.name == stage
+            and e.device_type == torch.autograd.DeviceType.CPU)
+        us, i = 0.0, 0
+        for a, b in ranges:
+            while i < len(busy) and busy[i][1] <= a:
+                i += 1
+            j = i
+            while j < len(busy) and busy[j][0] < b:
+                us += min(b, busy[j][1]) - max(a, busy[j][0])
+                j += 1
+        out[stage] = us / 1e6
+    return out
+
+
+def plate_latents(torch, dev, n, seed, noise=0.02):
+    """(n, 4096) fp32 latents on the card: PLATE_RANK factors with a
+    decaying spectrum on a random basis, noise, and an offset a well.
+    Without noise the centred latents have rank PLATE_RANK + wells - 1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    scale = 0.9 ** torch.arange(PLATE_RANK, device=dev, dtype=torch.float32)
+    factors = torch.randn(n, PLATE_RANK, generator=g, device=dev) * scale
+    basis = 0.1 * torch.randn(PLATE_RANK, LATENT_LEN, generator=g,
+                              device=dev)
+    well = torch.arange(n, device=dev) // PLATE_PATCHES
+    from dynamorph_tpu_torch.core.device import fp32_strict
+
+    with fp32_strict():
+        x = factors @ basis
+    if noise:
+        x += noise * torch.randn(n, LATENT_LEN, generator=g, device=dev)
+    x += 0.05 + 0.002 * well[:, None]
+    return x
+
+
+def pca_f64_errors(torch, x, mean, components, explained_variance):
+    """Float64 on the card: the largest relative gap between each projected
+    column's variance and its explained variance, and C C^T - I."""
+    c64 = torch.as_tensor(components, device=x.device, dtype=torch.float64)
+    mean = torch.as_tensor(mean, device=x.device, dtype=torch.float64)
+    ev = torch.as_tensor(explained_variance, device=x.device,
+                         dtype=torch.float64)
+    var = ((x.double() - mean) @ c64.T).var(0, unbiased=True)
+    eye = torch.eye(len(c64), device=x.device, dtype=torch.float64)
+    return (float((var / ev - 1).abs().max()),
+            float((c64 @ c64.T - eye).abs().max()))
+
+
+def svd_drivers(torch, x, k):
+    """The fp32 SVD of the centred ``x`` with each cuSOLVER driver: the
+    fit's ``gesvd``, ``gesvda`` (tall-skinny: faster, but it raises on
+    rank-deficient input) and PyTorch's default ``gesvdj``: seconds and the
+    float64 errors of the first ``k`` components, or the error raised."""
+    from dynamorph_tpu_torch.core.device import fp32_strict
+
+    n = len(x)
+    mean = x.mean(0)
+    xc = x - mean
+    out = {}
+    for driver in ("gesvd", "gesvda", None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with fp32_strict():
+                _, sv, vh = torch.linalg.svd(xc, full_matrices=False,
+                                             driver=driver)
+            torch.cuda.synchronize()
+        except RuntimeError as e:      # torch.linalg.LinAlgError
+            out[driver or "gesvdj"] = dict(error=str(e).split("\n")[0])
+            continue
+        seconds = time.perf_counter() - t0
+        var_err, ortho = pca_f64_errors(torch, x, mean, vh[:k],
+                                        sv[:k] ** 2 / (n - 1))
+        out[driver or "gesvdj"] = dict(s=seconds, var_err=var_err,
+                                       ortho=ortho)
+        del sv, vh
+    return out
+
+
+def driver_line(runs):
+    return "; ".join(
+        f"{d} raised ({r['error'][:90]})" if "error" in r else
+        f"{d} {r['s']:.3f} s, variance {r['var_err']:.3e}, C C^T vs I "
+        f"{r['ortho']:.3e}" for d, r in runs.items())
+
+
+def check_pca_model(path, n_samples):
+    """pca_model.pkl: a sklearn PCA pickle stream (the card has no sklearn
+    to unpickle it as one; load_pca_model reads it), k components of the
+    latent length, orthonormal, mean finite, explained ratio past 0.5."""
+    from dynamorph_tpu_torch.reduce.pca_model import load_pca_model
+
+    with open(path, "rb") as f:
+        head = f.read(64)
+    if b"sklearn.decomposition._pca" not in head or b"PCA" not in head:
+        raise AssertionError("pca_model.pkl does not name sklearn's PCA")
+    m = load_pca_model(path)
+    c = m.components_
+    k = m.n_components_
+    ortho = float(np.abs(c @ c.T - np.eye(k)).max())
+    csum = np.cumsum(m.explained_variance_ratio_)
+    problems = [
+        what for what, bad in (
+            (f"components {c.shape} {c.dtype}",
+             c.shape != (k, LATENT_LEN) or c.dtype != np.float64
+             or not np.isfinite(c).all()),
+            (f"C C^T vs I {ortho:.3e}", not ortho <= PCA_ORTHO_ATOL),
+            (f"mean {m.mean_.shape}", m.mean_.shape != (LATENT_LEN,)
+             or not np.isfinite(m.mean_).all()),
+            (f"cumulative ratio {csum[-2:]}", not csum[-1] > 0.5
+             or (k > 1 and csum[-2] > 0.5)),
+            (f"n_samples_ {m.n_samples_}", m.n_samples_ != n_samples),
+            ("whiten", bool(m.whiten))) if bad]
+    if problems:
+        raise AssertionError(f"pca_model.pkl malformed: {problems}")
+    log(f"pca_model.pkl: C C^T vs I {ortho:.3e}")
+    return m
+
+
+def phase_raw_to_pcs(torch, vq, root, dev, weights, card):
+    phase("10. raw TIFFs to PCs: run_preproc, run_pipeline (segmentation; "
+          "instance_segmentation ... pca), run_dim_reduction -m pca "
+          "(transform), a plate-scale PCA fit, the UMAP grid, on cuda")
+    from dynamorph_tpu_torch.cli import (run_dim_reduction, run_pipeline,
+                                         run_preproc)
+    from dynamorph_tpu_torch.io.pickles import load_pickle
+    from dynamorph_tpu_torch.reduce.pca import fit_pca_device, svd_driver
+    from dynamorph_tpu_torch.reduce.pca_model import load_pca_model
+    from dynamorph_tpu_torch.reduce.umap_native import NativeUMAP, knn_graph
+    from dynamorph_tpu_torch.reduce.umap_wrap import fit_umap
+    from torch.profiler import ProfilerActivity, profile
+
+    tag = f" [{card}]"
+    t_phase = t0 = time.perf_counter()
+    image_dir, raw, supp = (os.path.join(root, p) for p in
+                            ("pp_images", "pp_raw", "pp_supp"))
+    cells, frames, probs = write_raw_tiffs(
+        np.random.RandomState(SEED + 9), image_dir)
+    n = len(cells)
+    log(f"raw site {FE_SITE}: {FE_T} frames x {len(PP_CHANNELS)} channels "
+        f"of {FE_FRAME}x{FE_FRAME} uncompressed uint16 TIFFs (img_<channel>"
+        f"_t<ttt>_z{PP_Z:03d}.tif), {n} planted cells; made and written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    model_name = os.path.basename(weights)
+    pca_w, pcs_dir = os.path.join(root, "pp_pca"), os.path.join(root,
+                                                                "pp_pcs")
+    cfgs = {}
+    for fit in (True, False):
+        cfgs[fit] = os.path.join(root, f"raw_to_pcs_{fit}.yml")
+        with open(cfgs[fit], "w") as f:
+            f.write("preprocess:\n"
+                    f"  image_dirs: ['{image_dir}']\n"
+                    f"  target_dirs: ['{raw}']\n"
+                    f"  channels: {list(PP_CHANNELS)}\n"
+                    f"  pos_dir: True\n  multipage: False\n"
+                    f"  z_slice: {PP_Z}\n"
+                    "segmentation_inference:\n"
+                    f"  raw_dirs: ['{raw}']\n  supp_dirs: ['{supp}']\n"
+                    f"  weights: '{os.path.join(root, 'seg_weights')}'\n"
+                    "  network: 'UNet'\n  channels: [0, 1]\n"
+                    f"  num_classes: 3\n  window_size: {SEG_WINDOW}\n"
+                    f"  batch_size: 8\n  num_pred_rnd: {SEG_SUPP}\n"
+                    "  inference_mode: 'tiled'\n"
+                    "patch:\n"
+                    f"  raw_dirs: ['{raw}']\n  supp_dirs: ['{supp}']\n"
+                    f"  channels: [0, 1]\n  window_size: {FE_WINDOW}\n"
+                    "latent_encoding:\n"
+                    f"  raw_dirs: ['{raw}']\n  supp_dirs: ['{supp}']\n"
+                    f"  weights: ['{weights}']\n  save_output: False\n"
+                    f"  channels: [0, 1]\n  input_size: {FE_INPUT}\n"
+                    "  network: 'VQ_VAE_z16'\n"
+                    f"  num_hiddens: {NET['num_hiddens']}\n"
+                    f"  num_residual_hiddens: {NET['num_residual_hiddens']}\n"
+                    f"  num_embeddings: {NET['num_embeddings']}\n"
+                    "dim_reduction:\n"
+                    f"  input_dirs: ['{os.path.join(raw, model_name)}']\n"
+                    f"  output_dirs: ['{pcs_dir}']\n"
+                    f"  weights_dir: '{pca_w}'\n"
+                    "  file_name_prefixes: ['B2']\n"
+                    f"  fit_model: {fit}\n")
+    cfg = cfgs[True]
+    timing_log = os.path.join(root, "raw_to_pcs_timing.jsonl")
+    os.environ["DYNAMORPH_TIMING_LOG"] = timing_log
+    errors = ErrorRecords()
+    logging.getLogger().addHandler(errors)
+    walls = {}
+    try:
+        # 1. run_preproc
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run_preproc.main(["-c", cfg, "--device", dev.type])
+        walls["run_preproc"] = time.perf_counter() - t0
+        stack = np.load(os.path.join(raw, f"{FE_SITE}.npy"))
+        want_shape = (FE_T, 3, 1, FE_FRAME, FE_FRAME)
+        if stack.shape != want_shape or stack.dtype != np.float64:
+            raise AssertionError(f"preprocess npy {stack.shape} "
+                                 f"{stack.dtype}, want {want_shape} float64")
+        for slot, chan in enumerate(("Phase2D", "Retardance",
+                                     "Brightfield")):
+            if not np.array_equal(stack[:, slot, 0], frames[chan]):
+                raise AssertionError(f"preprocess slot {slot} is not the "
+                                     f"{chan} frames")
+        log(f"run_preproc: {walls['run_preproc']:.3f} s; {FE_SITE}.npy "
+            f"{stack.shape} float64 equals the planted Phase2D, Retardance "
+            "and Brightfield frames bit for bit, in slots 0, 1, 2")
+        del stack
+
+        # 2. run_pipeline --stages segmentation (random-weight U-Net), traced
+        # as step 4 is, for the stage's device time
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            done = run_pipeline.main(["-c", cfg, "--stages", "segmentation",
+                                      "--device", dev.type])
+            torch.cuda.synchronize()
+            walls["segmentation"] = time.perf_counter() - t0
+        seg_device = stage_device_seconds(torch, prof, ["segmentation"])
+        del prof
+        if done != {raw: ["segmentation"]}:
+            raise AssertionError(f"segmentation stage list {done}")
+        if [m for m in errors.messages if "Error in predicting" in m]:
+            raise AssertionError(f"segmentation failed: {errors.messages}")
+        seg_probs = np.load(os.path.join(raw,
+                                         f"{FE_SITE}_NNProbabilities.npy"))
+        if seg_probs.shape != (FE_T, 3, 1, FE_FRAME, FE_FRAME) or \
+                seg_probs.dtype != np.float64 or \
+                not np.isfinite(seg_probs).all():
+            raise AssertionError(f"segmentation probabilities "
+                                 f"{seg_probs.shape} {seg_probs.dtype}")
+        del seg_probs
+        log(f"run_pipeline --stages segmentation: "
+            f"{walls['segmentation']:.3f} s for {FE_T} frames (tiled, "
+            f"{SEG_SUPP} random passes), {FE_SITE}_NNProbabilities.npy "
+            "float64, finite")
+
+        # 3. the planted probabilities (a random-weight U-Net finds none)
+        np.save(os.path.join(raw, f"{FE_SITE}_NNProbabilities.npy"), probs)
+
+        # 4. the rest of the stage graph
+        vq.vq_lookup.launches = 0
+        vq.vq_indices.launches = 0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            done = run_pipeline.main(["-c", cfg, "--stages", *GRAPH_STAGES,
+                                      "--device", dev.type])
+            torch.cuda.synchronize()
+            walls["graph"] = time.perf_counter() - t0
+        launches = {"vq_lookup": vq.vq_lookup.launches,
+                    "vq_indices": vq.vq_indices.launches}
+        graph_peak = torch.cuda.max_memory_allocated() / 1e9
+        graph_device = stage_device_seconds(torch, prof, GRAPH_STAGES)
+        del prof
+    finally:
+        logging.getLogger().removeHandler(errors)
+        del os.environ["DYNAMORPH_TIMING_LOG"]
+    if done != {raw: GRAPH_STAGES}:
+        raise AssertionError(f"stage list {done}, want {GRAPH_STAGES}")
+
+    # 5. the artifacts, the launches, the latents and the PCA model
+    n_patches, static, (z_b, z_a) = check_front_end_outputs(
+        torch, raw, supp, cells, weights)
+    want = -(-n_patches // BATCH)
+    log(f"run_pipeline --stages {' '.join(GRAPH_STAGES)}: "
+        f"{walls['graph']:.3f} s; returned {done[raw]}; vq_lookup launches "
+        f"{launches['vq_lookup']} (want {want} for {n_patches} patches at "
+        f"batch {BATCH}), vq_indices {launches['vq_indices']}{tag}")
+    if launches["vq_lookup"] != want or launches["vq_indices"] != 0:
+        raise AssertionError("the stage graph did not launch vq_lookup once "
+                             "per batch")
+    lat_err, lat_flips = latents_vs_cpu(torch, static, z_b, z_a, weights)
+    model = check_pca_model(os.path.join(pca_w, "pca_model.pkl"), n_patches)
+    if png_size(os.path.join(pca_w, "PCA.png"))[2:] != (8, 2):
+        raise AssertionError("PCA.png is not an 8-bit RGB PNG")
+    log(f"pca_model.pkl: a sklearn PCA stream, k = {model.n_components_} "
+        f"of {LATENT_LEN}, {n_patches} samples, explained "
+        f"{np.sum(model.explained_variance_ratio_):.4f}; PCA.png")
+
+    # 6. the transform (fit_model: false) through run_dim_reduction; the
+    # fit writes no *_PCAed.pkl (in neither package), so its output is held
+    # against the fitted model's transform of the same latents
+    t0 = time.perf_counter()
+    run_dim_reduction.main(["-m", "pca", "-c", cfgs[False], "--device",
+                            dev.type])
+    walls["run_dim_reduction -m pca"] = time.perf_counter() - t0
+    pcs = load_pickle(os.path.join(pcs_dir, "B2_latent_space_after_PCAed.pkl"))
+    want_pcs = load_pca_model(os.path.join(pca_w, "pca_model.pkl")) \
+        .transform(z_a)
+    if pcs.shape != (n_patches, model.n_components_) or \
+            not np.array_equal(pcs, want_pcs):
+        raise AssertionError("the transform differs from the fitted model's")
+    log(f"run_dim_reduction -m pca (transform): "
+        f"{walls['run_dim_reduction -m pca']:.3f} s; "
+        f"B2_latent_space_after_PCAed.pkl {pcs.shape} {pcs.dtype} equals "
+        "the fitted model's transform bit for bit")
+
+    # per stage: wall (the orchestrator's stage_timer records) and host
+    # share, the device's busy time inside the stage from the traces of
+    # steps 2 and 4 (their walls include the profiler's own cost)
+    stage_s = stage_seconds(timing_log)
+    stages = ["segmentation"] + GRAPH_STAGES
+    device_s = None if seg_device is None or graph_device is None else \
+        {**seg_device, **graph_device}
+    shares = {}
+    for stage in stages:
+        if device_s is None:
+            shares[stage] = None
+            log(f"stage {stage}: {stage_s[stage]:.3f} s wall (stage_timer), "
+                f"device time and host share not measured (the trace holds "
+                f"no device event){tag}")
+            continue
+        shares[stage] = 1 - device_s[stage] / stage_s[stage]
+        log(f"stage {stage}: {stage_s[stage]:.3f} s wall (stage_timer), "
+            f"device busy {device_s[stage]:.4f} s (torch.profiler trace of "
+            f"this run), host share {shares[stage]:.4f}{tag}")
+    graph_s = sum(stage_s[s] for s in stages)
+    graph_share = "not measured" if device_s is None else \
+        f"{1 - sum(device_s.values()) / graph_s:.4f}"
+    log(f"raw TIFFs to PCs: run_preproc {walls['run_preproc']:.3f} s + "
+        f"stages {graph_s:.3f} s for {FE_T} frames; host share of the stages "
+        f"{graph_share}; peak device memory {graph_peak:.3f} GB{tag}")
+
+    # 7. a plate-scale PCA fit, and its SVD with each cuSOLVER driver
+    torch.cuda.reset_peak_memory_stats()
+    n_plate = PLATE_WELLS * PLATE_PATCHES
+    x = plate_latents(torch, dev, n_plate, SEED + 10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pca = fit_pca_device(x, device=dev)
+    fit_s = time.perf_counter() - t0
+    k = pca.n_components_
+    drivers = svd_drivers(torch, x, k)
+    if not drivers["gesvdj"]["ortho"] > PCA_ORTHO_ATOL:
+        raise AssertionError("the default-driver control lands inside the "
+                             "orthonormality limit: the check cannot see "
+                             "it")
+    t0 = time.perf_counter()
+    x_host = x.cpu().numpy()
+    fetch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plate_pcs = pca.transform(x_host)
+    transform_s = time.perf_counter() - t0
+    del x_host
+    var_err, ortho = pca_f64_errors(torch, x, pca.mean_, pca.components_,
+                                    pca.explained_variance_)
+    plate_peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"plate PCA: {n_plate} x {LATENT_LEN} fp32 latents ({PLATE_WELLS} "
+        f"wells of {PLATE_PATCHES}; {x.numel() * 4 / 1e9:.3f} GB on the "
+        f"card), k = {k} (explained "
+        f"{float(np.sum(pca.explained_variance_ratio_)):.4f}): fit "
+        f"{fit_s:.3f} s ({svd_driver(dev)}), fetch to the host "
+        f"{fetch_s:.3f} s, transform on the host {transform_s:.3f} s "
+        f"({plate_pcs.shape}); float64 on the card: projected variance vs "
+        f"explained_variance_ {var_err:.3e} relative (limit {PCA_RTOL}), "
+        f"C C^T vs I {ortho:.3e} (limit {PCA_ORTHO_ATOL}); peak device "
+        f"memory {plate_peak:.3f} GB{tag}")
+    log(f"plate PCA, the SVD alone by driver: {driver_line(drivers)}{tag}")
+    if not (var_err <= PCA_RTOL and ortho <= PCA_ORTHO_ATOL):
+        raise AssertionError("the plate-scale PCA fails its float64 check")
+    # the same plate without noise: rank-deficient, as latents whose codes
+    # or dimensions repeat are; the fit must still pass its checks
+    x_rd = plate_latents(torch, dev, n_plate, SEED + 11, noise=0.0)
+    pca_rd = fit_pca_device(x_rd, device=dev)
+    rd_err = pca_f64_errors(torch, x_rd, pca_rd.mean_, pca_rd.components_,
+                            pca_rd.explained_variance_)
+    rd_drivers = svd_drivers(torch, x_rd, pca_rd.n_components_)
+    del x_rd
+    log(f"rank-deficient plate (rank {PLATE_RANK + PLATE_WELLS - 1}): the "
+        f"fit's k = {pca_rd.n_components_}, variance {rd_err[0]:.3e}, C C^T "
+        f"vs I {rd_err[1]:.3e}; by driver: {driver_line(rd_drivers)}{tag}")
+    if not (rd_err[0] <= PCA_RTOL and rd_err[1] <= PCA_ORTHO_ATOL):
+        raise AssertionError("the rank-deficient PCA fails its float64 "
+                             "check")
+
+    # 8. the UMAP reference grid on the first UMAP_WELLS wells
+    torch.cuda.reset_peak_memory_stats()
+    n_umap = UMAP_WELLS * PLATE_PATCHES
+    xu = x[:n_umap].cpu().numpy()
+    del x
+    labels = np.repeat(np.arange(UMAP_WELLS), PLATE_PATCHES).tolist()
+    umap_dir = os.path.join(root, "pp_umap")
+    t0 = time.perf_counter()
+    reducers = fit_umap(xu, umap_dir, labels,
+                        [f"well {i}" for i in range(UMAP_WELLS)],
+                        n_nbrs=UMAP_GRID, device=dev)
+    umap_s = time.perf_counter() - t0
+    umap_peak = torch.cuda.max_memory_allocated() / 1e9
+    umap_runs = {}
+    for k_nbr, red in zip(UMAP_GRID, reducers):
+        emb, got_labels = load_pickle(os.path.join(
+            umap_dir, f"umap_nbr{k_nbr}_a1.58_b0.9.pkl"))
+        if emb.shape != (n_umap, 2) or not np.isfinite(emb).all() or \
+                got_labels != labels:
+            raise AssertionError(f"umap_nbr{k_nbr}: {emb.shape}")
+        umap_runs[k_nbr] = dict(red.timings_, init=red.init_)
+        tm = red.timings_
+        log(f"UMAP n_neighbors={k_nbr}: kNN {tm['knn_s']:.3f} s (card), "
+            f"fuzzy set {tm['fuzzy_s']:.3f} s (host), init {red.init_} "
+            f"{tm['init_s']:.3f} s (host), optimisation "
+            f"{tm['optimize_s']:.3f} s (card; {tm['n_epochs']} epochs, "
+            f"{tm['n_edges']} edges){tag}")
+    t0 = time.perf_counter()
+    again = NativeUMAP(a=1.58, b=0.9, n_neighbors=UMAP_GRID[0],
+                       device=dev).fit_transform(xu)
+    repeat_s = time.perf_counter() - t0
+    if not np.array_equal(again, reducers[0].embedding_):
+        raise AssertionError("the n_neighbors=15 UMAP fit is not "
+                             "reproducible bit for bit")
+    sub = xu[:UMAP_KNN_ROWS]
+    ic, dc = knn_graph(sub, UMAP_GRID[0], device=dev)
+    ih, dh = knn_graph(sub, UMAP_GRID[0], device="cpu")
+    s64 = sub.astype(np.float64)
+    sq = (s64 * s64).sum(1)
+    exact = sq[:, None] - 2 * s64 @ s64.T + sq[None]
+    rounding = 8 * np.finfo(np.float32).eps * 2 * sq.max()
+    ties = 0
+    for r in range(len(sub)):
+        a, b = set(ic[r]), set(ih[r])
+        if a != b:
+            kth = max(exact[r, list(a | b)])
+            if any(exact[r, j] < kth - rounding for j in a ^ b):
+                raise AssertionError(f"kNN row {r}: card and CPU differ "
+                                     "beyond a tie")
+            ties += 1
+    dist_err = float(np.max(np.abs(np.sort(dc, 1) / np.sort(dh, 1) - 1)))
+    if dist_err > UMAP_DIST_RTOL:
+        raise AssertionError(f"kNN distances card vs CPU {dist_err:.3e}")
+    log(f"UMAP grid {UMAP_GRID} on {n_umap} x {LATENT_LEN} latents: "
+        f"{umap_s:.3f} s (fit_umap, UMAP.png and pickles included), peak "
+        f"device memory {umap_peak:.3f} GB; the n_neighbors=15 fit again "
+        f"{repeat_s:.3f} s, bit-equal; kNN card vs CPU on {UMAP_KNN_ROWS} "
+        f"rows: equal but for {ties} rows of ties, distances within "
+        f"{dist_err:.3e} relative{tag}")
+    log(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(n_cells=n, n_patches=n_patches, walls=walls,
+                stage_s=stage_s, device_s=device_s, host_shares=shares,
+                launches=launches,
+                latent_err=lat_err, latent_flips=lat_flips,
+                graph_peak_gb=graph_peak,
+                plate=dict(n=n_plate, k=k, fit_s=fit_s, drivers=drivers,
+                           fetch_s=fetch_s, transform_s=transform_s,
+                           var_err=var_err, ortho=ortho,
+                           peak_gb=plate_peak, rank_deficient=dict(
+                               k=pca_rd.n_components_, var_err=rd_err[0],
+                               ortho=rd_err[1], drivers=rd_drivers)),
+                umap=dict(n=n_umap, runs=umap_runs, total_s=umap_s,
+                          repeat_s=repeat_s, knn_ties=ties,
+                          knn_dist_err=dist_err, peak_gb=umap_peak))
+
+
 def main() -> int:
     # one card: the first of those visible, so device_count() is what the
     # run uses (set before torch initialises CUDA)
@@ -1889,6 +2463,8 @@ def main() -> int:
         seg = phase_segmentation(torch, vq, root, dev, smi)
         front = phase_front_end(torch, vq, root, dev, main_run["weights"],
                                 smi)
+        raw_pcs = phase_raw_to_pcs(torch, vq, root, dev, main_run["weights"],
+                                   smi)
 
     z16 = timed["z16 encode"]
     ti = train_timed["indices"]
@@ -1911,6 +2487,7 @@ def main() -> int:
         "ptxas": ptxas["vq_lookup_kernel"],
         "launches_training_path": train_run["launches_lookup"],
         "launches_front_end_path": front["launches"]["vq_lookup"],
+        "launches_run_pipeline_path": raw_pcs["launches"]["vq_lookup"],
         "z32": {k: timed["z32 encode"][k] for k in
                 ("ms", "ms_per_call", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "bound_share", "rowwise_ms")},
@@ -1935,6 +2512,7 @@ def main() -> int:
         "bound_share": ti["bound_share"],
         "ptxas": ti["ptxas"],
         "launches_front_end_path": front["launches"]["vq_indices"],
+        "launches_run_pipeline_path": raw_pcs["launches"]["vq_indices"],
         "flips_vs_plain": {k: indices[k]["flips"] for k in indices},
         "flip_rate_vs_f64": {k: indices[k]["f64_rate"] for k in indices},
     }]
@@ -1953,7 +2531,12 @@ def main() -> int:
         f"{seg['tiles_tf32_control']:.3e}); front end to latents, "
         f"{FE_T} frames of {FE_FRAME}x{FE_FRAME}, {front['n_cells']} cells: "
         f"{sum(front['walls'].values()):.3f} s, host share "
-        f"{front['host_share']:.4f}; whole script "
+        f"{front['host_share']:.4f}; raw TIFFs to PCs, {FE_T} frames: "
+        f"run_preproc {raw_pcs['walls']['run_preproc']:.3f} s, stages "
+        f"{sum(raw_pcs['stage_s'].values()):.3f} s; plate PCA fit "
+        f"{raw_pcs['plate']['fit_s']:.3f} s ({raw_pcs['plate']['n']} x "
+        f"{LATENT_LEN}); UMAP grid {raw_pcs['umap']['total_s']:.3f} s "
+        f"({raw_pcs['umap']['n']} latents); whole script "
         f"{time.perf_counter() - t_start:.1f} s [{smi}]")
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())

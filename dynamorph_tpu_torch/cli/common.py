@@ -27,20 +27,28 @@ def shard_work(items):
     return list(items)
 
 
-def parse_method_config(choices: Sequence[str],
-                        argv: Optional[Sequence[str]] = None):
-    """Parse ``-m``, ``-c`` and ``--device``; returns (method, config,
-    device)."""
+def config_parser() -> argparse.ArgumentParser:
+    """A parser of ``-c`` and ``--device``, the options every CLI takes."""
     parser = argparse.ArgumentParser()
-    parser.add_argument("-m", "--method", type=str, required=True,
-                        choices=list(choices),
-                        help=f"Method: one of {list(choices)}")
     parser.add_argument("-c", "--config", type=str, required=True,
                         help="path to yaml configuration file")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"],
                         help="device to run on (default: cuda; without a "
                              "card the run fails unless --device cpu)")
+    return parser
+
+
+def parse_method_config(choices: Sequence[str],
+                        argv: Optional[Sequence[str]] = None,
+                        default: Optional[str] = None):
+    """Parse ``-m``, ``-c`` and ``--device``; returns (method, config,
+    device). ``-m`` is required unless a ``default`` is given
+    (run_dim_reduction's is pca, as in the JAX package)."""
+    parser = config_parser()
+    parser.add_argument("-m", "--method", type=str, required=default is None,
+                        choices=list(choices), default=default,
+                        help=f"Method: one of {list(choices)}")
     args = parser.parse_args(argv)
     return args.method, load_config(args.config), args.device
 

@@ -3,7 +3,9 @@
 ``stage_timer`` appends ``{stage, seconds, ...}`` records to a JSONL file
 (set ``DYNAMORPH_TIMING_LOG`` or pass a path), used by the pipeline stages.
 The times are host clock; a stage that ends in a host copy of its device
-results has waited for the device.
+results has waited for the device. Each timed stage is also a
+``torch.profiler`` range named after it, so a trace of a run can split
+its device time by stage.
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ import logging
 import os
 import time
 from typing import Iterator, Optional
+
+import torch
 
 log = logging.getLogger(__name__)
 
@@ -24,7 +28,8 @@ def stage_timer(stage: str, log_path: Optional[str] = None,
     path = log_path or os.environ.get("DYNAMORPH_TIMING_LOG")
     t0 = time.perf_counter()
     try:
-        yield
+        with torch.profiler.record_function(stage):
+            yield
     finally:
         dt = time.perf_counter() - t0
         log.info("[timing] %s: %.3fs", stage, dt)

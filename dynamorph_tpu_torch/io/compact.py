@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import logging
 import os
-from typing import Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -30,6 +30,9 @@ from .pickles import load_pickle, save_pickle
 # treated as "same age" — copied/extracted trees often land both siblings
 # within the same second (or identical) even when their contents differ.
 _MTIME_TIE_S = 2.0
+
+# the members of a stack container
+STACK_MEMBERS = ("keys", "mat", "masked_mat")
 
 
 def npz_path(path: str) -> str:
@@ -160,3 +163,86 @@ def load_array_any(path: str) -> np.ndarray:
     if path.endswith(".npz"):
         return load_array_compact(path)
     return load_pickle(path)
+
+
+# ------------------------------------------------------------- converter
+
+
+def _is_stack_dict(obj: Any) -> bool:
+    return isinstance(obj, dict) and all(
+        isinstance(v, dict) and "mat" in v and "masked_mat" in v
+        for v in obj.values())
+
+
+def _pickle_to_compact(src: str, dst: str) -> str:
+    obj = load_pickle(src)
+    if _is_stack_dict(obj):
+        save_stack_compact(obj, dst)
+        return npz_path(dst)
+    if not isinstance(obj, np.ndarray):
+        raise ValueError(
+            f"{src}: unsupported pickle content {type(obj).__name__} — "
+            "only stack dicts and ndarrays have a compact form")
+    # record the pickle dtype so --to pickle restores the dtype contract
+    # (float64 static_patches, float32 latents). Values round through
+    # float32: exact for float32-origin data (patches, latents), lossy for
+    # float64 content (e.g. static_patches after the float64 resize)
+    dst = npz_path(dst)
+    os.makedirs(os.path.dirname(os.path.abspath(dst)), exist_ok=True)
+    arr = np.asarray(obj)
+    if obj.dtype.kind == "f":
+        arr = obj.astype(np.float32, copy=False)
+        if obj.dtype.itemsize > 4 and not np.array_equal(
+                arr.astype(obj.dtype), obj, equal_nan=True):
+            logging.getLogger(__name__).warning(
+                "%s: float%d values are not exactly representable as "
+                "float32 — the compact form (and any pickle converted back "
+                "from it) rounds them", src, obj.dtype.itemsize * 8)
+    np.savez(dst, data=arr, pkl_dtype=np.asarray(str(obj.dtype)))
+    return dst
+
+
+def _compact_to_pickle(src: str, dst: str) -> str:
+    with np.load(src, allow_pickle=False) as z:
+        members = set(z.files)
+    if members == set(STACK_MEMBERS):
+        # reference stacks are float64 (extract_patches.py:262-264); exact
+        # for float32-origin patch values
+        data = {k: {kk: np.asarray(vv, dtype=np.float64)
+                    for kk, vv in v.items()}
+                for k, v in load_stack_compact(src).items()}
+        save_pickle(data, dst)
+        return dst
+    if members not in ({"data"}, {"data", "pkl_dtype"}):
+        raise ValueError(f"{src}: unrecognized npz members {members}")
+    with np.load(src, allow_pickle=False) as z:
+        arr = np.asarray(z["data"])
+        if "pkl_dtype" in members:
+            # converter-written: restore the recorded pickle dtype
+            arr = arr.astype(np.dtype(str(z["pkl_dtype"])))
+        elif (arr.dtype.kind == "f"
+              and "static_patches" in os.path.basename(src)
+              and "mask" not in os.path.basename(src)):
+            # pipeline-written compact static_patches: the reference pickle
+            # contract is float64 (pipeline/patch_VAE.py:166); latents and
+            # masks keep their dtype
+            arr = arr.astype(np.float64)
+    save_pickle(arr, dst)
+    return dst
+
+
+def convert_storage(src: str, to: str, out: Optional[str] = None) -> str:
+    """Convert one artifact between pickle and compact storage.
+
+    ``to``: "compact" or "pickle". Detects the stack-dict vs plain-array
+    layout from the content. Returns the output path.
+    """
+    if to == "compact":
+        if not src.endswith(".pkl"):
+            raise ValueError(f"expected a .pkl source, got {src}")
+        return _pickle_to_compact(src, out or npz_path(src))
+    if to == "pickle":
+        if not src.endswith(".npz"):
+            raise ValueError(f"expected a .npz source, got {src}")
+        return _compact_to_pickle(src, out or pkl_path(src))
+    raise ValueError(f"unknown target storage {to!r}")

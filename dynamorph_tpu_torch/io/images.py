@@ -1,10 +1,37 @@
-"""Display conversion for reconstruction images (reference
-SingleCellPatch/extract_patches.py:314-334)."""
+"""Image reading (reference pipeline/preprocess.py:10-26) and display
+conversion for reconstruction images (reference
+SingleCellPatch/extract_patches.py:314-334).
+
+The JAX package reads images through cv2; the port reads npy and grayscale
+TIFFs (io/tiff.py), whose pixels and dtypes are cv2's.
+"""
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
 import numpy as np
+
+from .tiff import read_tiff_pages
+
+
+def read_image(file_path: str) -> np.ndarray:
+    """2-D grayscale image of any bit depth from an npy or a TIFF file (its
+    first page), as ``cv2.imread(path, cv2.IMREAD_ANYDEPTH)`` reads it."""
+    if file_path.endswith("npy"):
+        return np.load(file_path)
+    if not os.path.isfile(file_path):
+        raise IOError(f'Image "{file_path}" cannot be found.')
+    return read_tiff_pages(file_path)[0]
+
+
+def read_multipage_tiff(file_path: str) -> np.ndarray:
+    """All pages of a raw microscopy multipage TIFF as (T, Y, X) grayscale
+    (the preprocess input), as ``cv2.imreadmulti(path,
+    flags=cv2.IMREAD_ANYDEPTH)`` reads them."""
+    if not os.path.isfile(file_path):
+        raise IOError(f'Multipage TIFF "{file_path}" cannot be read.')
+    return np.array(read_tiff_pages(file_path))
 
 
 def im_bit_convert(im: np.ndarray, bit: int = 16, norm: bool = False,

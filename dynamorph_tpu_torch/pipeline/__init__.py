@@ -1,3 +1,4 @@
-"""Pipeline stages of the port: semantic and instance segmentation, patch
-extraction, tracking, VAE dataset assembly, latent encoding and trajectory
-matching."""
+"""Pipeline stages of the port: preprocessing, semantic and instance
+segmentation, patch extraction, tracking, VAE dataset assembly, latent
+encoding, trajectory matching and dimensionality reduction, and the staged
+orchestrator that runs them."""

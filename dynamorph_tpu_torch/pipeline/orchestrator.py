@@ -1,0 +1,150 @@
+"""One-command pipeline orchestration, staged — the port of
+``dynamorph_tpu/pipeline/orchestrator.py``.
+
+Runs any span of the stage graph over one experiment directory with
+per-stage timing (``stage_timer``) and skip-if-output-exists resume.
+
+Stage order: segmentation -> instance_segmentation -> extract_patches ->
+build_trajectories -> assemble -> process -> trajectory_matching -> pca.
+(Preprocessing runs separately via run_preproc: it maps over different
+directories.)
+
+One process drives one card, so a stage that fails raises at once. The
+fused front end (``patch.fused``) and streaming encode
+(``latent_encoding.streaming``) are not ported yet and refuse.
+"""
+from __future__ import annotations
+
+import logging
+import os
+from typing import List, Optional, Sequence, Union
+
+import torch
+
+from ..core.device import resolve_device
+from ..core.profiling import stage_timer
+from ..io.compact import resolve_any
+from ..io.prefetch import AsyncWriter, Prefetcher
+from ..io.sites import group_sites_by_well, site_supp_folder
+from .dim_reduction import dim_reduction
+from .patch import (_refuse_fused, build_trajectories, extract_patches,
+                    instance_segmentation)
+from .patch_vae import (assemble_vae, load_well_inputs, process_vae,
+                        trajectory_matching)
+from .segmentation import segmentation
+
+log = logging.getLogger(__name__)
+
+STAGES = ["segmentation", "instance_segmentation", "extract_patches",
+          "build_trajectories", "assemble", "process",
+          "trajectory_matching", "pca"]
+
+
+def _refuse_streaming(config) -> None:
+    if config.latent_encoding.streaming:
+        raise NotImplementedError(
+            "latent_encoding.streaming: true (the streaming encode, "
+            "pipeline/stream.py) is not ported yet; it comes with ROADMAP "
+            "slice C, after the fused stage")
+
+
+def _well_outputs_exist(raw_dir: str, well: str, names: Sequence[str]) -> bool:
+    # artifacts may exist in either storage format (.pkl / .npz)
+    return all(os.path.exists(resolve_any(os.path.join(raw_dir, f"{well}{n}")))
+               for n in names)
+
+
+def _sites_have(supp_dir: str, sites: Sequence[str], name: str) -> bool:
+    return all(os.path.exists(os.path.join(site_supp_folder(supp_dir, s),
+                                           name)) for s in sites)
+
+
+def run_pipeline(raw_dir: str, supp_dir: str, sites: Sequence[str], config,
+                 stages: Optional[Sequence[str]] = None,
+                 resume: bool = True,
+                 device: Union[str, torch.device] = "cuda") -> List[str]:
+    """Run the stage graph over one experiment directory.
+
+    Args:
+        stages: subset of STAGES to run (default: all).
+        resume: skip stages whose outputs already exist (extract_patches,
+            process and pca have no such check and always run).
+        device: where segmentation, extract_patches, process and the PCA
+            fit run; the other stages run on the host.
+
+    Returns the list of stages actually executed.
+    """
+    stages = list(stages) if stages else list(STAGES)
+    unknown = set(stages) - set(STAGES)
+    if unknown:
+        raise ValueError(f"unknown stages {sorted(unknown)}; "
+                         f"available: {STAGES}")
+    _refuse_fused(config)
+    _refuse_streaming(config)
+    dev = resolve_device(device)
+    executed = []
+
+    def run(stage: str, fn, skip_if=None):
+        if stage not in stages:
+            return
+        if resume and skip_if is not None and skip_if():
+            log.info("[pipeline] %s: outputs exist, skipping", stage)
+            return
+        log.info("[pipeline] running %s", stage)
+        with stage_timer(stage):
+            fn()
+        executed.append(stage)
+
+    wells = group_sites_by_well(sites)
+    run("segmentation",
+        lambda: segmentation(raw_dir, supp_dir, None, sites, config,
+                             device=dev),
+        skip_if=lambda: all(
+            os.path.exists(os.path.join(raw_dir, f"{s}_NNProbabilities.npy"))
+            for s in sites))
+    run("instance_segmentation",
+        lambda: instance_segmentation(raw_dir, supp_dir, sites, config,
+                                      rerun=not resume),
+        skip_if=lambda: _sites_have(supp_dir, sites, "cell_positions.pkl"))
+    run("extract_patches",
+        lambda: extract_patches(raw_dir, supp_dir, sites, config,
+                                device=dev))
+    run("build_trajectories",
+        lambda: build_trajectories(raw_dir, supp_dir, sites, config),
+        skip_if=lambda: _sites_have(supp_dir, sites, "cell_traj.pkl"))
+    run("assemble",
+        lambda: [assemble_vae(raw_dir, supp_dir, ws, config,
+                              patch_type="mat")
+                 for ws in wells.values()],
+        skip_if=lambda: all(_well_outputs_exist(
+            raw_dir, w, ["_static_patches.pkl", "_file_paths.pkl"])
+            for w in wells))
+
+    def _process_all():
+        # prefetch the next well's pickles while this one encodes; drain
+        # latent pickle saves on a writer thread (same overlap as the
+        # run_vae CLI)
+        prefetched = Prefetcher(
+            list(wells.items()),
+            lambda kv: load_well_inputs(raw_dir, kv[0]))
+        with AsyncWriter(depth=2) as writer:
+            for (_, ws), preloaded in prefetched:
+                process_vae(raw_dir, supp_dir, ws, config,
+                            preloaded=preloaded, writer=writer, device=dev)
+
+    run("process", _process_all)
+    run("trajectory_matching",
+        lambda: [trajectory_matching(raw_dir, supp_dir, ws)
+                 for ws in wells.values()],
+        skip_if=lambda: all(_well_outputs_exist(
+            raw_dir, w, ["_trajectories.pkl"]) for w in wells))
+    dr = config.dim_reduction
+    if "pca" in stages and dr.input_dirs:
+        # the fit pools the latents of every input directory (reference
+        # run_dim_reduction.py:276-287)
+        with stage_timer("pca"):
+            dim_reduction("pca", dr.input_dirs,
+                          dr.output_dirs or dr.input_dirs, dr.weights_dir,
+                          config, device=dev)
+        executed.append("pca")
+    return executed

@@ -37,7 +37,10 @@ from dynamorph_tpu.ops import patch as jax_patch_ops
 from dynamorph_tpu.pipeline import patch as jax_patch
 from dynamorph_tpu.pipeline import patch_vae as jax_patch_vae
 from dynamorph_tpu.track import clustering as jax_clustering
-from dynamorph_tpu_torch.cli import run_patch, run_segmentation, run_vae
+from dynamorph_tpu.pipeline.orchestrator import \
+    run_pipeline as jax_run_pipeline
+from dynamorph_tpu_torch.cli import (run_patch, run_pipeline,
+                                     run_segmentation, run_vae)
 from dynamorph_tpu_torch.config import load_config
 from dynamorph_tpu_torch.io.compact import load_stack_any
 from dynamorph_tpu_torch.io.pickles import load_pickle, save_pickle
@@ -136,14 +139,22 @@ def _yaml(path, section, raw, supp, **extra):
     return str(path)
 
 
+# the stages between the probabilities and the latents, in graph order
+CHAIN_STAGES = ["instance_segmentation", "extract_patches",
+                "build_trajectories", "assemble", "trajectory_matching"]
+
+
 @pytest.fixture(scope="module")
 def chain(tmp_path_factory):
-    """The five stages on the same site through both packages: returns
-    {"jax": (raw, supp), "port": (raw, supp)}."""
+    """The five stages on the same sites through both packages: the JAX
+    package's run_pipeline, the port's stage CLIs and the port's
+    run_pipeline CLI, each on its own copy of the inputs. Returns
+    {"jax": (raw, supp), "port": (raw, supp), "pipeline": (raw, supp),
+    "cfgs": {...}, "executed": {"jax": [...], "pipeline": [...]}}."""
     root = tmp_path_factory.mktemp("chain")
     sites = {SITE: _site(), EDGE_SITE: _edge_site()}
     dirs = {}
-    for pkg in ("jax", "port"):
+    for pkg in ("jax", "port", "pipeline"):
         raw, supp = root / f"{pkg}_raw", root / f"{pkg}_supp"
         raw.mkdir()
         for site, (raw_stack, probs) in sites.items():
@@ -162,13 +173,10 @@ def chain(tmp_path_factory):
         jcfg = JaxPC()
         jcfg.patch.window_size = WINDOW
         jcfg.latent_encoding = JaxLE(channels=[0, 1], input_size=INPUT)
-        jax_patch.instance_segmentation(raw, supp, list(sites), jcfg)
-        jax_patch.extract_patches(raw, supp, list(sites), jcfg)
-        jax_patch.build_trajectories(raw, supp, list(sites), jcfg)
-        for site in sites:
-            jax_patch_vae.assemble_vae(raw, supp, [site], jcfg,
-                                       patch_type="mat")
-            jax_patch_vae.trajectory_matching(raw, supp, [site], jcfg)
+        # the two sites are in two wells, so the JAX orchestrator's
+        # per-well assemble and trajectory_matching are per-site calls
+        executed = {"jax": jax_run_pipeline(raw, supp, sorted(sites), jcfg,
+                                            stages=CHAIN_STAGES)}
     finally:
         mp.undo()
 
@@ -187,6 +195,15 @@ def chain(tmp_path_factory):
     run_vae.main(["-m", "assemble", "-c", vae, *cpu])
     run_vae.main(["-m", "trajectory_matching", "-c", vae, *cpu])
     dirs["cfgs"] = {"seg": seg, "patch": patch, "vae": vae}
+
+    raw, supp = dirs["pipeline"]
+    pipe = _yaml(cfgs / "pipe.yml", "patch", raw, supp, window_size=WINDOW)
+    with open(pipe, "a") as f:
+        f.write(f"latent_encoding:\n  input_size: {INPUT}\n")
+    dirs["cfgs"]["pipeline"] = pipe
+    executed["pipeline"] = run_pipeline.main(
+        ["-c", pipe, "--stages", *CHAIN_STAGES, *cpu])[raw]
+    dirs["executed"] = executed
     return dirs
 
 
@@ -534,6 +551,143 @@ def test_fused_refused(chain, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP slice C"):
         run_patch.main(["-m", "extract_patches", "-c", cfg, "--device",
                         "cpu"])
+
+
+def _artifacts(dirs, pkg):
+    """Every artifact of the five stages under one package's dirs, keyed
+    by its name with the package's roots cut off, paths inside it too."""
+    raw, supp = dirs[pkg]
+    out = {}
+    for site in (SITE, EDGE_SITE):
+        folder = _supp_site(dirs, pkg, site)
+        for name in sorted(os.listdir(folder)):
+            if name.endswith(".pkl"):
+                data = load_pickle(os.path.join(folder, name))
+                if name.startswith("stacks_"):
+                    data = {os.path.relpath(k, supp): v
+                            for k, v in data.items()}
+                out[f"{site}/{name}"] = data
+    for name in sorted(os.listdir(raw)):
+        if name.endswith(".pkl"):
+            data = load_pickle(os.path.join(raw, name))
+            if name.endswith("_file_paths.pkl"):
+                data = [os.path.relpath(f, supp) for f in data]
+            out[name] = data
+    return out
+
+
+def test_run_pipeline_artifacts_match_jax(chain):
+    """The port's run_pipeline (--stages instance_segmentation ...
+    trajectory_matching, --device cpu) on its own copy of the inputs writes
+    every artifact of the JAX package's run_pipeline, equal: the site
+    pickles, every frame's stacks, the wells' static patches, file paths,
+    relations, labels and trajectory lists."""
+    ours, ref = _artifacts(chain, "pipeline"), _artifacts(chain, "jax")
+    assert list(ours) == list(ref)
+    n_stacks = sum(name.split("/")[-1].startswith("stacks_")
+                   for name in ours)
+    assert n_stacks == T + EDGE_T and len(ours) == n_stacks + 6 + 10
+    for name in ours:
+        _assert_same(ours[name], ref[name], name)
+
+
+def test_run_pipeline_stage_lists_match_jax(chain, monkeypatch):
+    """The executed stages, fresh (all five, as the JAX package's
+    run_pipeline returns them) and resumed: extract_patches has no
+    skip rule, so it runs again (here a stand-in that records the call);
+    over the four stages that have one, both packages skip everything."""
+    from dynamorph_tpu_torch.pipeline import orchestrator
+
+    assert chain["executed"]["pipeline"] == chain["executed"]["jax"] == \
+        CHAIN_STAGES
+    pipe = chain["cfgs"]["pipeline"]
+    raw = chain["pipeline"][0]
+    extracted = []
+    monkeypatch.setattr(orchestrator, "extract_patches",
+                        lambda *a, **k: extracted.append(a[2]))
+    again = run_pipeline.main(["-c", pipe, "--stages", *CHAIN_STAGES,
+                               "--device", "cpu"])
+    assert again == {raw: ["extract_patches"]}
+    assert extracted == [[SITE, EDGE_SITE]]
+    skippable = [s for s in CHAIN_STAGES if s != "extract_patches"]
+    jcfg = JaxPC()
+    jcfg.patch.window_size = WINDOW
+    resumed = jax_run_pipeline(*chain["jax"], [SITE, EDGE_SITE], jcfg,
+                               stages=skippable)
+    ours = run_pipeline.main(["-c", pipe, "--stages", *skippable,
+                              "--device", "cpu"])
+    assert ours == {raw: resumed} and resumed == []
+
+
+@pytest.mark.parametrize("case", ["fused", "streaming", "--fused"])
+def test_run_pipeline_refuses_unported_paths(chain, tmp_path, case):
+    """patch.fused, latent_encoding.streaming and --fused name the queue
+    item that ports them instead of running the staged graph."""
+    raw, supp = chain["pipeline"]
+    extra = {"fused": "patch:\n  fused: true\n",
+             "streaming": "latent_encoding:\n  streaming: true\n",
+             "--fused": ""}[case]
+    cfg = tmp_path / "cfg.yml"
+    cfg.write_text(f"patch:\n  raw_dirs: ['{raw}']\n"
+                   f"  supp_dirs: ['{supp}']\n"
+                   + extra.replace("patch:\n", ""))
+    argv = ["-c", str(cfg), "--device", "cpu"]
+    if case == "--fused":
+        argv.append("--fused")
+    with pytest.raises(NotImplementedError, match="ROADMAP slice C"):
+        run_pipeline.main(argv)
+
+
+def test_run_pipeline_raises_without_card(chain):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_pipeline.main(["-c", chain["cfgs"]["pipeline"], "--stages",
+                           "build_trajectories"])
+
+
+def test_convert_storage_matches_jax(chain, tmp_path):
+    """convert_storage --to compact, then --to pickle, over a copy of a
+    site's stacks and its well's static patches and labels: the same .npz
+    members and arrays as the JAX package's converter, the same pickles
+    back, and the labels (no compact form) left alone."""
+    import shutil
+
+    from dynamorph_tpu.cli import convert_storage as jax_convert
+    from dynamorph_tpu_torch.cli import convert_storage
+
+    raw = chain["port"][0]
+    for pkg in ("ours", "ref"):
+        d = tmp_path / pkg
+        d.mkdir()
+        for name in ("stacks_0.pkl", "stacks_5.pkl"):
+            shutil.copy(os.path.join(_supp_site(chain, "port"), name), d)
+        for suffix in ("static_patches", "static_patches_labels"):
+            shutil.copy(os.path.join(raw, f"{WELL}_{suffix}.pkl"), d)
+    for to in ("compact", "pickle"):
+        if to == "pickle":
+            for pkg in ("ours", "ref"):
+                for f in (tmp_path / pkg).glob("*.pkl"):
+                    if "labels" not in f.name:
+                        f.rename(f.with_suffix(".orig"))
+        assert convert_storage.main(["--to", to, str(tmp_path / "ours")]) \
+            == 0
+        assert jax_convert.main(["--to", to, str(tmp_path / "ref")]) == 0
+    names = sorted(os.listdir(tmp_path / "ref"))
+    assert sorted(os.listdir(tmp_path / "ours")) == names
+    assert len([n for n in names if n.endswith(".npz")]) == 3
+    for name in names:
+        a, b = tmp_path / "ours" / name, tmp_path / "ref" / name
+        if name.endswith(".npz"):
+            with np.load(a) as za, np.load(b) as zb:
+                assert za.files == zb.files
+                for m in za.files:
+                    np.testing.assert_array_equal(za[m], zb[m])
+        elif name.endswith(".pkl"):
+            _assert_same(load_pickle(str(a)), load_pickle(str(b)), name)
+    # the stacks come back as they were (float32-exact patch values)
+    _assert_same(load_pickle(str(tmp_path / "ours" / "stacks_0.pkl")),
+                 load_pickle(str(tmp_path / "ours" / "stacks_0.orig")))
 
 
 def test_entry_points_raise_without_card(chain):

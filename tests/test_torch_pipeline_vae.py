@@ -254,3 +254,94 @@ def test_recon_draw_matches_jax_on_a_full_well(monkeypatch, tmp_path):
     assert port_well.read == jax_well.read
     assert port_patch_vae.recon_sample_indices(2304).tolist() == \
         jax_well.read
+
+
+def test_run_pipeline_process_and_pca(well, tmp_path, monkeypatch):
+    """run_pipeline --stages process pca --device cpu writes the latents
+    that run_vae -m process writes, bit for bit, and a pca_model.pkl (the
+    pca stage fits, fit_model: true) within the PCA limits of
+    tests/test_torch_dim_reduction.py (k equal, components 1e-5, mean
+    1e-6, variances 1e-5 relative, transforms 1e-4) of the JAX package's
+    dim_reduction("pca") on the same latent files. The codebook is drawn
+    from the encoder's own latent rows (a random one puts every position
+    on one code, and z_after would be constant). The JAX package runs on
+    8 virtual CPU devices here, where its fit takes the sharded covariance
+    path; it is pointed at its one-device SVD path, the path of one
+    card."""
+    import matplotlib.figure
+
+    from dynamorph_tpu.config.schema import DimReductionConfig
+    from dynamorph_tpu.pipeline.dim_reduction import dim_reduction
+    from dynamorph_tpu.reduce import pca as jax_pca
+    from dynamorph_tpu_torch.cli import run_pipeline
+
+    raw, supp, fixture_weights = well
+    state = torch.load(os.path.join(fixture_weights, "model.pt"))
+    model = VQVAEz16()
+    model.load_state_dict(state)
+    data = load_pickle(os.path.join(raw, f"{WELL}_static_patches.pkl"))
+    z_b, _ = encode_patches(model, data[:, :, 0], normalize="patch",
+                            device="cpu")
+    rows = z_b.reshape(N, 16, -1).transpose(0, 2, 1).reshape(-1, 16)
+    pick = np.random.RandomState(3).choice(len(rows), 64, replace=False)
+    state["vq.w.weight"] = torch.from_numpy(rows[pick].copy())
+    weights = tmp_path / "weights"
+    weights.mkdir()
+    torch.save(state, str(weights / "model.pt"))
+    runs = {}
+    for name in ("vae", "pipeline"):
+        d = tmp_path / name
+        d.mkdir()
+        for f in os.listdir(raw):
+            if f.endswith(".pkl"):
+                os.symlink(os.path.join(raw, f), d / f)
+        cfg = tmp_path / f"{name}.yml"
+        cfg.write_text(
+            f"patch:\n  raw_dirs: ['{d}']\n  supp_dirs: ['{supp}']\n"
+            f"  fov: {SITES}\n"
+            "latent_encoding:\n"
+            f"  raw_dirs: ['{d}']\n  supp_dirs: ['{supp}']\n"
+            f"  weights: ['{weights}']\n  fov: {SITES}\n"
+            "  save_output: False\n  network: 'VQ_VAE_z16'\n"
+            "  num_hiddens: 16\n  num_residual_hiddens: 32\n"
+            "  num_embeddings: 64\n"
+            "dim_reduction:\n"
+            f"  input_dirs: ['{d / 'weights'}']\n"
+            f"  weights_dir: '{tmp_path / 'pca_ours'}'\n"
+            f"  file_name_prefixes: ['{WELL}']\n  fit_model: True\n")
+        runs[name] = (str(d), str(cfg))
+    run_vae.main(["-m", "process", "-c", runs["vae"][1], "--device", "cpu"])
+    executed = run_pipeline.main(["-c", runs["pipeline"][1], "--stages",
+                                  "process", "pca", "--device", "cpu"])
+    assert executed == {runs["pipeline"][0]: ["process", "pca"]}
+    ours, ref = _latents(runs["pipeline"][0]), _latents(runs["vae"][0])
+    assert sorted(ours) == sorted(ref) and len(ours) == 2
+    for f in ours:
+        np.testing.assert_array_equal(ours[f], ref[f])
+
+    # the JAX package's stage on the same latent files (its figure is not
+    # compared: savefig only touches the file)
+    monkeypatch.setattr(matplotlib.figure.Figure, "savefig",
+                        lambda self, path, **kw: open(path, "wb").close())
+    monkeypatch.setattr(jax_pca, "fit_pca_distributed",
+                        lambda x, fraction: jax_pca.fit_pca_device(x, fraction))
+    jcfg = JaxPC(dim_reduction=DimReductionConfig(
+        file_name_prefixes=[WELL], fit_model=True, conditions=None))
+    latent_dir = os.path.join(runs["pipeline"][0], "weights")
+    dim_reduction("pca", [latent_dir], [latent_dir],
+                  str(tmp_path / "pca_ref"), jcfg)
+    assert sorted(os.listdir(tmp_path / "pca_ours")) == \
+        sorted(os.listdir(tmp_path / "pca_ref")) == ["PCA.png",
+                                                     "pca_model.pkl"]
+    m, m_ref = (load_pickle(str(tmp_path / d / "pca_model.pkl"))
+                for d in ("pca_ours", "pca_ref"))
+    assert m.n_components_ == m_ref.n_components_
+    np.testing.assert_allclose(m.components_, m_ref.components_, rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(m.mean_, m_ref.mean_, rtol=0, atol=1e-6)
+    for attr in ("explained_variance_", "explained_variance_ratio_"):
+        np.testing.assert_allclose(getattr(m, attr), getattr(m_ref, attr),
+                                   rtol=1e-5)
+    z = ours[f"{WELL}_latent_space_after.pkl"]
+    np.testing.assert_allclose(m.transform(z), m_ref.transform(z), rtol=0,
+                               atol=1e-4)
