@@ -108,6 +108,26 @@ passed prints the final ``{"ok": true, ...}`` line:
    reference grid (n_neighbors 15, 50, 200) on 9,216 of them (kNN, fuzzy
    set, init, optimisation timed; the 15-neighbour fit repeated bit-equal;
    the card's kNN equal to the CPU's on 1,024 rows, ties aside).
+11. the device-resident front end on phase 10's site (the npy
+   ``run_preproc`` wrote, 12 frames of 3 x 2048 x 2048): ``run_pipeline``
+   with ``patch.fused: true`` (the fused segmentation -> instance -> patch
+   stage, then build_trajectories ... trajectory_matching staged), then
+   with ``latent_encoding.streaming: true`` too (raw -> latents in one
+   pass, then build_trajectories, the relation half of assemble and
+   trajectory_matching). The segmentation model runs phase 8's U-Net at
+   its published widths on every frame and returns the planted
+   probabilities, rebuilt from the frame. It checks the stage lists, every
+   artifact against phase 10's staged run (pickles, stacks, PNGs, static
+   patches, file paths, relations, labels, trajectory lists), the
+   probabilities, the latents at phase 4's limits (and says whether they
+   came out bit-equal) and one vq_lookup launch per 512 patches on each
+   path; it prints each stage's wall time and host share (a torch.profiler
+   trace of each run), the bytes each frame moves each way (the stage's
+   own count), the peak device memory and the peak pinned host memory
+   (``torch.cuda.host_memory_stats``), beside phase 10's staged front
+   end and phase 8's direct-mode frame; and the fused stage's host work
+   (a frame's stacks pickle and clustering, the site's probability save
+   and previews) timed apart.
    Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and the
    ``{"ok": true, ...}`` line.
 """
@@ -2402,7 +2422,10 @@ def phase_raw_to_pcs(torch, vq, root, dev, weights, card):
     log(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
     return dict(n_cells=n, n_patches=n_patches, walls=walls,
                 stage_s=stage_s, device_s=device_s, host_shares=shares,
-                launches=launches,
+                launches=launches, dirs=(raw, supp), cells=cells,
+                probs_path=os.path.join(raw,
+                                        f"{FE_SITE}_NNProbabilities.npy"),
+                seg_weights=os.path.join(root, "seg_weights"),
                 latent_err=lat_err, latent_flips=lat_flips,
                 graph_peak_gb=graph_peak,
                 plate=dict(n=n_plate, k=k, fit_s=fit_s, drivers=drivers,
@@ -2414,6 +2437,427 @@ def phase_raw_to_pcs(torch, vq, root, dev, weights, card):
                 umap=dict(n=n_umap, runs=umap_runs, total_s=umap_s,
                           repeat_s=repeat_s, knn_ties=ties,
                           knn_dist_err=dist_err, peak_gb=umap_peak))
+
+
+# ---------------------------------------------------------------- phase 11
+
+# The device-resident front end on phase 10's site and frames (12 frames of
+# 3 x 2048 x 2048, the npy run_preproc wrote): run_pipeline with
+# patch.fused (the fused seg -> instance -> patch stage, then the staged
+# rest), then with latent_encoding.streaming too (raw -> latents in one
+# pass), each against phase 10's staged run.
+FUSED_STAGES = ["segmentation"] + [s for s in GRAPH_STAGES if s != "pca"]
+FUSED_EXECUTED = {
+    "fused": ["seg_patch_fused", "build_trajectories", "assemble", "process",
+              "trajectory_matching"],
+    "streaming": ["seg_patch_stream", "build_trajectories", "assemble",
+                  "trajectory_matching"]}
+# phase 9's first channel is 28000-30999 off a cell and at least 33600 on
+# one (front_end_arrays), so a threshold between rebuilds the planted cells
+PLANT_THR = 32000.0
+
+
+class PlantedSegment:
+    """Phase 8's U-Net (``seg.model.Segment``, the published widths and
+    phase 10's weights) on every frame, so the card pays for it; what it
+    returns are the planted probabilities, rebuilt from the frame's first
+    channel as phase 9 builds them (background 0.97, cell 0.02 off a cell;
+    0.05 and 0.9 on one; the third class one minus both, in float64) and
+    rounded to float32, the fused stage's dtype."""
+
+    def __init__(self, unet):
+        self.unet = unet
+        self.device = unet.device
+        self.n_classes = unet.n_classes
+        self.calls = 0
+
+    def probabilities(self, x):
+        torch = sys.modules["torch"]
+        self.unet.probabilities(x)
+        self.calls += 1
+        on = x[:, 0] * 65535.0 > PLANT_THR
+        bg = torch.full(on.shape, 0.97, dtype=torch.float64,
+                        device=x.device).masked_fill_(on, 0.05)
+        cell = torch.full(on.shape, 0.02, dtype=torch.float64,
+                          device=x.device).masked_fill_(on, 0.9)
+        return torch.stack([bg, cell, 1.0 - bg - cell], 1)[:, :, None] \
+            .to(torch.float32)
+
+
+def same(a, b, path="obj"):
+    """Deep equality of pickled structures: types, dtypes, arrays element
+    for element."""
+    if type(a) is not type(b):
+        raise AssertionError(f"{path}: {type(a)} vs {type(b)}")
+    if isinstance(a, np.ndarray):
+        if a.dtype != b.dtype or a.shape != b.shape or \
+                not np.array_equal(a, b):
+            raise AssertionError(f"{path}: arrays differ")
+    elif isinstance(a, dict):
+        if list(a) != list(b):
+            raise AssertionError(f"{path}: keys differ")
+        for k in a:
+            same(a[k], b[k], f"{path}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{path}: lengths differ")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same(x, y, f"{path}[{i}]")
+    elif not a == b:
+        raise AssertionError(f"{path}: {a!r} vs {b!r}")
+
+
+def check_against_staged(raw, supp, raw10, supp10, planted):
+    """The run's artifacts against phase 10's staged run of the same
+    frames: the site pickles, every frame's stacks (names with the supp
+    root cut off), the instance maps and the raw-frame preview byte for
+    byte, the probabilities (the planted ones in float32), and the well's
+    file paths, static patches, relations, labels and trajectory lists.
+    Returns the number of files compared."""
+    from dynamorph_tpu_torch.io.pickles import load_pickle
+
+    n = 0
+    a = os.path.join(supp, "B2-supps", FE_SITE)
+    b = os.path.join(supp10, "B2-supps", FE_SITE)
+    for name in ("cell_positions.pkl", "cell_pixel_assignments.pkl",
+                 "cell_traj.pkl"):
+        same(load_pickle(os.path.join(a, name)),
+             load_pickle(os.path.join(b, name)), name)
+        n += 1
+    for t in range(FE_T):
+        same({os.path.relpath(k, supp): v for k, v in load_pickle(
+            os.path.join(a, f"stacks_{t}.pkl")).items()},
+            {os.path.relpath(k, supp10): v for k, v in load_pickle(
+                os.path.join(b, f"stacks_{t}.pkl")).items()},
+            f"stacks_{t}")
+        for f in (os.path.join(a, f"segmentation_{t}.png"),
+                  os.path.join(b, f"segmentation_{t}.png")):
+            if not os.path.exists(f):
+                raise AssertionError(f"{f} missing")
+        with open(os.path.join(a, f"segmentation_{t}.png"), "rb") as fa, \
+                open(os.path.join(b, f"segmentation_{t}.png"), "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"segmentation_{t}.png differs")
+        n += 2
+    with open(os.path.join(raw, f"{FE_SITE}.png"), "rb") as fa, \
+            open(os.path.join(raw10, f"{FE_SITE}.png"), "rb") as fb:
+        if fa.read() != fb.read():
+            raise AssertionError(f"{FE_SITE}.png differs")
+    probs = np.load(os.path.join(raw, f"{FE_SITE}_NNProbabilities.npy"))
+    if probs.dtype != np.float32 or \
+            not np.array_equal(probs, planted.astype(np.float32)):
+        raise AssertionError("the fused probabilities are not the planted "
+                             "ones")
+    if png_size(os.path.join(raw, f"{FE_SITE}_NNpred.png")) != \
+            (FE_FRAME, FE_FRAME, 8, 6):
+        raise AssertionError(f"{FE_SITE}_NNpred.png")
+    n += 3
+    for name in ("B2_file_paths.pkl", "B2_static_patches.pkl",
+                 "B2_static_patches_relations.pkl",
+                 "B2_static_patches_labels.pkl", "B2_trajectories.pkl"):
+        ours = load_pickle(os.path.join(raw, name))
+        ref = load_pickle(os.path.join(raw10, name))
+        if name == "B2_file_paths.pkl":
+            ours = [os.path.relpath(f, supp) for f in ours]
+            ref = [os.path.relpath(f, supp10) for f in ref]
+        same(ours, ref, name)
+        n += 1
+    return n
+
+
+def latents_vs_staged(torch, what, raw, raw10, weights):
+    """The run's latents against phase 10's at phase 4's limits: z_before
+    within LATENT_ATOL, z_after on the same codes but at near-ties the
+    latents' own difference can move. Returns (max |d z_before|, flips,
+    bit-equal)."""
+    from dynamorph_tpu_torch.io.pickles import load_pickle
+
+    model = os.path.basename(weights)
+    z_b, z_a, r_b, r_a = (load_pickle(os.path.join(d, model, f"B2_{n}.pkl"))
+                          for d in (raw, raw10) for n in
+                          ("latent_space", "latent_space_after"))
+    if z_b.shape != r_b.shape or z_a.shape != r_a.shape:
+        raise AssertionError(f"{what}: latents {z_b.shape}, want "
+                             f"{r_b.shape}")
+    err = float(np.max(np.abs(z_b - r_b)))
+    if not err <= LATENT_ATOL:
+        raise AssertionError(f"{what}: z_before {err:.3e} from phase 10's")
+    cb = torch.load(os.path.join(weights, "model.pt"))["vq.w.weight"].cpu()
+
+    def rows(z):
+        return torch.from_numpy(z).reshape(-1, 16, 256).permute(0, 2, 1) \
+            .reshape(-1, 16)
+
+    idx, idx_ref = codes_of(torch, rows(z_a), cb), codes_of(torch, rows(r_a),
+                                                            cb)
+    flips = torch.nonzero(idx != idx_ref).flatten()
+    if len(flips):
+        check_flips_vs_latents(torch, what, rows(r_b)[flips],
+                               rows(z_b)[flips], cb[idx_ref[flips]],
+                               cb[idx[flips]])
+    bit = bool(np.array_equal(z_b, r_b) and np.array_equal(z_a, r_a))
+    return err, len(flips), bit
+
+
+def fused_host_costs(root, raw, supp):
+    """The fused stage's host work for one frame (frame 0) and for the
+    site, timed apart after the run: the stacks pickle write (the writer
+    thread's), the clustering of the frame's foreground on the threads the
+    stage gives each of its 3 workers, and the site's probability save and
+    previews. Returns {name: seconds}."""
+    from dynamorph_tpu_torch.io.pickles import load_pickle, save_pickle
+    from dynamorph_tpu_torch.io.png import write_png
+    from dynamorph_tpu_torch.seg.data import plot_prediction_prob
+    from dynamorph_tpu_torch.track.clustering import \
+        cluster_foreground_positions
+
+    folder = os.path.join(supp, "B2-supps", FE_SITE)
+    out = {}
+    stacks = load_pickle(os.path.join(folder, "stacks_0.pkl"))
+    t0 = time.perf_counter()
+    save_pickle(stacks, os.path.join(root, "stacks_again.pkl"))
+    out["stacks pickle write, one frame"] = time.perf_counter() - t0
+    os.remove(os.path.join(root, "stacks_again.pkl"))
+    pixels = load_pickle(os.path.join(folder,
+                                      "cell_pixel_assignments.pkl"))[0][0]
+    threads = max(1, (os.cpu_count() or 1) // 3)
+    t0 = time.perf_counter()
+    cluster_foreground_positions(pixels, (FE_FRAME, FE_FRAME),
+                                 instance_map=False, threads=threads)
+    out[f"clustering, one frame on {threads} threads"] = \
+        time.perf_counter() - t0
+    probs = np.load(os.path.join(raw, f"{FE_SITE}_NNProbabilities.npy"))
+    t0 = time.perf_counter()
+    np.save(os.path.join(root, "probs_again.npy"), probs)
+    out["probabilities npy write, the site"] = time.perf_counter() - t0
+    os.remove(os.path.join(root, "probs_again.npy"))
+    frame = np.load(os.path.join(raw, f"{FE_SITE}.npy"), mmap_mode="r")
+    t0 = time.perf_counter()
+    write_png(os.path.join(root, "again.png"), frame[0, 0, 0])
+    plot_prediction_prob(probs[0], os.path.join(root, "again_NNpred.png"))
+    out["both preview PNGs, the site"] = time.perf_counter() - t0
+    return out
+
+
+def phase_fused_stream(torch, vq, root, dev, weights, card, staged, seg):
+    phase("11. device-resident front end: run_pipeline with patch.fused, "
+          "then with latent_encoding.streaming, on phase 10's site, on cuda")
+    import shutil
+
+    from dynamorph_tpu_torch.cli import run_pipeline
+    from dynamorph_tpu_torch.pipeline import fused, stream
+    from dynamorph_tpu_torch.seg.model import Segment
+    from torch.profiler import ProfilerActivity, profile
+
+    tag = f" [{card}]"
+    t_phase = time.perf_counter()
+    raw10, supp10 = staged["dirs"]
+    planted = np.load(staged["probs_path"])
+    n_patches = staged["n_patches"]
+    models, moved = [], []
+
+    def planted_model(config, device):
+        si = config.segmentation_inference
+        unet = Segment(input_shape=(len(si.channels), si.window_size,
+                                    si.window_size),
+                       n_classes=si.num_classes, device=device)
+        unet.load(si.weights)
+        models.append(PlantedSegment(unet))
+        return models[-1]
+
+    real_site = fused.process_site_seg_patch_fused
+
+    def counted_site(*a, **k):
+        moved.append(real_site(*a, **k))
+        return moved[-1]
+
+    # the path's plain PyTorch ops (XLA in the JAX package), counted per
+    # call: they have no launch counter of their own
+    calls = {}
+    plain = [(fused, "pack_mask_bits"), (fused, "scatter_label_map"),
+             (stream, "resize_select")]
+    plain_saved = [getattr(m, name) for m, name in plain]
+
+    def counted(name, fn):
+        def call(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **k)
+        return call
+
+    for (m, name), fn in zip(plain, plain_saved):
+        setattr(m, name, counted(name, fn))
+    host = {}
+    saved = (fused.build_seg_model, stream.build_seg_model)
+    fused.build_seg_model = stream.build_seg_model = planted_model
+    fused.process_site_seg_patch_fused = counted_site
+    runs = {}
+    try:
+        for mode in ("fused", "streaming"):
+            raw, supp = (os.path.join(root, f"{mode}_{d}")
+                         for d in ("raw", "supp"))
+            os.makedirs(raw)
+            os.symlink(os.path.join(raw10, f"{FE_SITE}.npy"),
+                       os.path.join(raw, f"{FE_SITE}.npy"))
+            cfg = os.path.join(root, f"{mode}.yml")
+            with open(cfg, "w") as f:
+                f.write("segmentation_inference:\n"
+                        f"  raw_dirs: ['{raw}']\n  supp_dirs: ['{supp}']\n"
+                        f"  weights: '{staged['seg_weights']}'\n"
+                        "  network: 'UNet'\n  channels: [0, 1]\n"
+                        f"  num_classes: 3\n  window_size: {SEG_WINDOW}\n"
+                        "patch:\n"
+                        f"  raw_dirs: ['{raw}']\n  supp_dirs: ['{supp}']\n"
+                        f"  channels: [0, 1]\n  window_size: {FE_WINDOW}\n"
+                        "  fused: true\n"
+                        "latent_encoding:\n"
+                        f"  raw_dirs: ['{raw}']\n  supp_dirs: ['{supp}']\n"
+                        f"  weights: ['{weights}']\n  save_output: False\n"
+                        f"  channels: [0, 1]\n  input_size: {FE_INPUT}\n"
+                        "  network: 'VQ_VAE_z16'\n"
+                        f"  num_hiddens: {NET['num_hiddens']}\n"
+                        "  num_residual_hiddens: "
+                        f"{NET['num_residual_hiddens']}\n"
+                        f"  num_embeddings: {NET['num_embeddings']}\n"
+                        f"  streaming: {mode == 'streaming'}\n")
+            timing_log = os.path.join(root, f"{mode}_timing.jsonl")
+            os.environ["DYNAMORPH_TIMING_LOG"] = timing_log
+            errors = ErrorRecords()
+            logging.getLogger().addHandler(errors)
+            vq.vq_lookup.launches = 0
+            vq.vq_indices.launches = 0
+            calls.clear()
+            torch.cuda.reset_peak_memory_stats()
+            pinned_stats = hasattr(torch.cuda, "host_memory_stats") and \
+                hasattr(torch.cuda, "reset_peak_host_memory_stats")
+            if pinned_stats:
+                torch.cuda.reset_peak_host_memory_stats()
+                pinned_before = torch.cuda.host_memory_stats().get(
+                    "allocated_bytes.current", 0)
+            try:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    done = run_pipeline.main(["-c", cfg, "--stages",
+                                              *FUSED_STAGES, "--device",
+                                              dev.type])
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            finally:
+                logging.getLogger().removeHandler(errors)
+                del os.environ["DYNAMORPH_TIMING_LOG"]
+            launches = {"vq_lookup": vq.vq_lookup.launches,
+                        "vq_indices": vq.vq_indices.launches}
+            plain_calls = dict(calls)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            # pinned host memory: the blocks handed out at once (active)
+            # and those the caching host allocator owned (allocated, cached
+            # blocks of earlier phases included)
+            pinned = "not measured (no torch.cuda.host_memory_stats)"
+            if pinned_stats:
+                hs = torch.cuda.host_memory_stats()
+                active = hs.get("active_bytes.peak", 0) / 1e9
+                owned = hs.get("allocated_bytes.peak", 0) / 1e9
+                pinned = (f"active peak {active:.3f} GB, allocated peak "
+                          f"{owned:.3f} GB ({pinned_before / 1e9:.3f} GB "
+                          "before the run)")
+            executed = done.get(raw)
+            if executed != FUSED_EXECUTED[mode]:
+                raise AssertionError(f"{mode}: stage list {done}, want "
+                                     f"{FUSED_EXECUTED[mode]}")
+            if errors.messages:
+                raise AssertionError(f"{mode}: errors logged "
+                                     f"{errors.messages}")
+            stage_s = stage_seconds(timing_log)
+            device_s = stage_device_seconds(torch, prof, executed)
+            del prof
+            if models[-1].calls != FE_T:
+                raise AssertionError(f"{mode}: the U-Net ran "
+                                     f"{models[-1].calls} times, want {FE_T}")
+            want = -(-n_patches // BATCH)
+            if launches != {"vq_lookup": want, "vq_indices": 0}:
+                raise AssertionError(f"{mode}: launches {launches}, want "
+                                     f"{want} vq_lookup for {n_patches} "
+                                     "patches")
+            want_calls = {"pack_mask_bits": FE_T, "scatter_label_map": FE_T}
+            if mode == "streaming":
+                want_calls["resize_select"] = FE_T
+            if plain_calls != want_calls:
+                raise AssertionError(f"{mode}: plain op calls {plain_calls},"
+                                     f" want {want_calls}")
+            n_files = check_against_staged(raw, supp, raw10, supp10,
+                                           planted)
+            if mode == "fused":
+                host = fused_host_costs(root, raw, supp)
+                log("the fused stage's host work, timed apart after the "
+                    "run: " + "; ".join(f"{k} {v:.3f} s"
+                                        for k, v in host.items()) + tag)
+            lat = latents_vs_staged(torch, mode, raw, raw10, weights)
+            m = moved[-1]
+            runs[mode] = dict(executed=executed, wall=wall, stage_s=stage_s,
+                              device_s=device_s, launches=launches,
+                              plain_calls=plain_calls,
+                              peak_gb=peak, pinned=pinned,
+                              latent_err=lat[0],
+                              latent_flips=lat[1], latent_bit_equal=lat[2],
+                              h2d_frame=m["h2d_bytes"] / m["frames"],
+                              d2h_frame=m["d2h_bytes"] / m["frames"])
+            log(f"run_pipeline {mode} (--stages {' '.join(FUSED_STAGES)}): "
+                f"{wall:.3f} s wall (traced); returned {executed}; the U-Net "
+                f"ran on all {FE_T} frames; vq_lookup launches "
+                f"{launches['vq_lookup']} (want {want} for {n_patches} "
+                f"patches at batch {BATCH}), vq_indices "
+                f"{launches['vq_indices']}; plain op calls "
+                f"{json.dumps(plain_calls)}; {n_files} artifacts equal to "
+                f"phase 10's staged run (pickles, stacks, PNGs byte for "
+                f"byte, static patches), probabilities the planted ones; "
+                f"latents vs phase 10's: z_before max abs {lat[0]:.3e} "
+                f"(limit {LATENT_ATOL}), {lat[1]} z_after code flips "
+                f"(near-ties), bit-equal: {lat[2]}; per frame host->device "
+                f"{runs[mode]['h2d_frame'] / 1e6:.3f} MB, device->host "
+                f"{runs[mode]['d2h_frame'] / 1e6:.3f} MB (the stage's own "
+                f"count); peak device memory {peak:.3f} GB; pinned host "
+                f"memory {pinned}{tag}")
+            for stage in executed:
+                share = "not measured (the trace holds no device event)" \
+                    if device_s is None else \
+                    f"{1 - device_s[stage] / stage_s[stage]:.4f}"
+                busy = "not measured" if device_s is None else \
+                    f"{device_s[stage]:.4f} s"
+                log(f"  {mode} stage {stage}: {stage_s[stage]:.3f} s wall "
+                    f"(stage_timer), device busy {busy} (torch.profiler), "
+                    f"host share {share}{tag}")
+            shutil.rmtree(supp)        # 1.5 GB of float64 stacks
+    finally:
+        fused.build_seg_model, stream.build_seg_model = saved
+        fused.process_site_seg_patch_fused = real_site
+        for (m, name), fn in zip(plain, plain_saved):
+            setattr(m, name, fn)
+
+    front = ["segmentation", "instance_segmentation", "extract_patches"]
+    st, sh = staged["stage_s"], staged["host_shares"]
+    staged_s = sum(st[s] for s in front)
+    staged_share = "not measured" if sh["segmentation"] is None else \
+        f"{1 - sum((1 - sh[s]) * st[s] for s in front) / staged_s:.4f}"
+    for mode, first in (("fused", "seg_patch_fused"),
+                        ("streaming", "seg_patch_stream")):
+        r = runs[mode]
+        share = "not measured" if r["device_s"] is None else \
+            f"{1 - r['device_s'][first] / r['stage_s'][first]:.4f}"
+        r["front_s"] = r["stage_s"][first]
+        r["front_share"] = None if r["device_s"] is None else \
+            1 - r["device_s"][first] / r["stage_s"][first]
+        log(f"{first}: {r['front_s']:.3f} s for {FE_T} frames "
+            f"({1e3 * r['front_s'] / FE_T:.3f} ms a frame), host share "
+            f"{share}; the stages {sum(r['stage_s'].values()):.3f} s{tag}")
+    direct = seg["timed"]["direct"]
+    log(f"beside them: phase 10's staged segmentation (tiled) + "
+        f"instance_segmentation + extract_patches {staged_s:.3f} s "
+        f"(host share {staged_share}); phase 8's direct mode, one "
+        f"{SEG_FRAME}x{SEG_FRAME} frame from a host array "
+        f"{direct['wall_ms']:.3f} ms, its device work "
+        f"{direct['device_ms']:.3f} ms{tag}")
+    log(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(runs=runs, staged_front_s=staged_s, host=host)
 
 
 def main() -> int:
@@ -2465,6 +2909,8 @@ def main() -> int:
                                 smi)
         raw_pcs = phase_raw_to_pcs(torch, vq, root, dev, main_run["weights"],
                                    smi)
+        fused_run = phase_fused_stream(torch, vq, root, dev,
+                                       main_run["weights"], smi, raw_pcs, seg)
 
     z16 = timed["z16 encode"]
     ti = train_timed["indices"]
@@ -2488,6 +2934,10 @@ def main() -> int:
         "launches_training_path": train_run["launches_lookup"],
         "launches_front_end_path": front["launches"]["vq_lookup"],
         "launches_run_pipeline_path": raw_pcs["launches"]["vq_lookup"],
+        "launches_fused_path":
+            fused_run["runs"]["fused"]["launches"]["vq_lookup"],
+        "launches_stream_path":
+            fused_run["runs"]["streaming"]["launches"]["vq_lookup"],
         "z32": {k: timed["z32 encode"][k] for k in
                 ("ms", "ms_per_call", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "bound_share", "rowwise_ms")},
@@ -2513,6 +2963,10 @@ def main() -> int:
         "ptxas": ti["ptxas"],
         "launches_front_end_path": front["launches"]["vq_indices"],
         "launches_run_pipeline_path": raw_pcs["launches"]["vq_indices"],
+        "launches_fused_path":
+            fused_run["runs"]["fused"]["launches"]["vq_indices"],
+        "launches_stream_path":
+            fused_run["runs"]["streaming"]["launches"]["vq_indices"],
         "flips_vs_plain": {k: indices[k]["flips"] for k in indices},
         "flip_rate_vs_f64": {k: indices[k]["f64_rate"] for k in indices},
     }]
@@ -2533,7 +2987,10 @@ def main() -> int:
         f"{sum(front['walls'].values()):.3f} s, host share "
         f"{front['host_share']:.4f}; raw TIFFs to PCs, {FE_T} frames: "
         f"run_preproc {raw_pcs['walls']['run_preproc']:.3f} s, stages "
-        f"{sum(raw_pcs['stage_s'].values()):.3f} s; plate PCA fit "
+        f"{sum(raw_pcs['stage_s'].values()):.3f} s; fused front end "
+        f"{fused_run['runs']['fused']['front_s']:.3f} s, streaming front end"
+        f" {fused_run['runs']['streaming']['front_s']:.3f} s (staged "
+        f"{fused_run['staged_front_s']:.3f} s); plate PCA fit "
         f"{raw_pcs['plate']['fit_s']:.3f} s ({raw_pcs['plate']['n']} x "
         f"{LATENT_LEN}); UMAP grid {raw_pcs['umap']['total_s']:.3f} s "
         f"({raw_pcs['umap']['n']} latents); whole script "

@@ -6,8 +6,9 @@ Usage:
         [--device cuda|cpu]
 
 Directories come from the ``patch`` section (raw_dirs/supp_dirs); stages
-default to the full graph (see pipeline/orchestrator.py). ``--fused`` (the
-fused front end) is not ported yet and refuses.
+default to the full graph (see pipeline/orchestrator.py). ``--fused`` sets
+``patch.fused``: the three front-end stages run as one device-resident
+stage (pipeline/fused.py).
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, List[str]]:
                         help="re-run stages even if outputs exist")
     parser.add_argument("--fused", action="store_true",
                         help="the fused seg -> instance -> patch front end "
-                             "(overrides patch.fused; not ported yet)")
+                             "(overrides patch.fused)")
     args = parser.parse_args(argv)
     config = load_config(args.config)
     if args.fused:

@@ -5,6 +5,7 @@ import contextlib
 import threading
 from typing import Iterator, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 
@@ -62,3 +63,44 @@ def fp32_strict() -> Iterator[None]:
             if _tf32_depth == 0:
                 cudnn.allow_tf32, matmul.allow_tf32 = _tf32_saved
                 _tf32_saved = None
+
+
+def upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without waiting for the device: on the
+    card through pinned memory and a ``non_blocking`` copy, which is
+    ordered on the current stream behind the work already queued there (a
+    plain ``.to(device)`` would first wait for that work to finish). The
+    pinned block is not reused before the copy is done."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class HostCopy:
+    """A device -> host copy started now and waited for later, from any
+    thread.
+
+    On the card the tensor is copied ``non_blocking`` into pinned host
+    memory and an event is recorded behind the copy on the current stream:
+    ``wait`` blocks on that event only, so the copy does not queue behind
+    work enqueued after it, and the thread that waits launches no CUDA
+    work. A CPU tensor is its own host copy.
+    """
+
+    def __init__(self, t: torch.Tensor):
+        self.nbytes = t.numel() * t.element_size()
+        self._event = None
+        if t.device.type == "cuda":
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(t.device))
+        else:
+            self._host = t.detach()
+
+    def wait(self) -> np.ndarray:
+        """The host array, once the copy has landed."""
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()

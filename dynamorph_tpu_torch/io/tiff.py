@@ -11,9 +11,10 @@ with or without the horizontal predictor (Predictor 2). Anything else
 another bit depth or sample format, a palette or inverted photometric)
 raises an ``IOError`` that names it.
 
-The writer is the grayscale half of the JAX package's
-(``dynamorph_tpu/io/tiff.py``): uncompressed, one strip a page,
-little-endian, uint8 or uint16.
+The writer is the JAX package's (``dynamorph_tpu/io/tiff.py``):
+uncompressed, one strip a page, little-endian, uint8 or uint16, gray or
+RGB pages (the validation overlays are uint16 RGB, which PIL cannot
+encode). The reader takes gray pages only.
 """
 from __future__ import annotations
 
@@ -39,12 +40,16 @@ def _entry(tag: int, type_: int, count: int, value: int) -> bytes:
 
 
 def write_multipage_tiff(path: str, stack: np.ndarray) -> None:
-    """Write a (T, H, W) uint8/uint16 stack as a multipage grayscale TIFF."""
+    """Write a (T, H, W) gray or (T, H, W, 3) RGB uint8/uint16 stack as a
+    multipage TIFF."""
     stack = np.asarray(stack)
-    if stack.ndim != 3 or stack.dtype not in (np.uint8, np.uint16):
-        raise ValueError("expect a uint8 or uint16 (T, H, W) stack, got "
-                         f"{stack.dtype} {stack.shape}")
-    t, h, w = stack.shape
+    if stack.ndim == 3:
+        stack = stack[..., None]
+    if stack.ndim != 4 or stack.shape[-1] not in (1, 3) or \
+            stack.dtype not in (np.uint8, np.uint16):
+        raise ValueError("expect a uint8 or uint16 (T, H, W) or (T, H, W, 3) "
+                         f"stack, got {stack.dtype} {stack.shape}")
+    t, h, w, c = stack.shape
     bits = 16 if stack.dtype == np.uint16 else 8
 
     with open(path, "wb") as f:
@@ -59,16 +64,21 @@ def write_multipage_tiff(path: str, stack: np.ndarray) -> None:
             f.write(data)
             if f.tell() % 2:        # TIFF requires word-aligned offsets
                 f.write(b"\x00")
+            # BitsPerSample: inline for one sample, an array for three
+            bps_count, bps_value = 1, bits
+            if c == 3:
+                bps_count, bps_value = 3, f.tell()
+                f.write(struct.pack("<3H", bits, bits, bits))
 
             ifd_offset = f.tell()
             entries = [
                 _entry(256, 4, 1, w),                 # ImageWidth
                 _entry(257, 4, 1, h),                 # ImageLength
-                _entry(258, 3, 1, bits),              # BitsPerSample
+                _entry(258, 3, bps_count, bps_value),  # BitsPerSample
                 _entry(259, 3, 1, 1),                 # Compression: none
-                _entry(262, 3, 1, 1),                 # Photometric: gray
+                _entry(262, 3, 1, 2 if c == 3 else 1),  # Photometric
                 _entry(273, 4, 1, data_offset),       # StripOffsets
-                _entry(277, 3, 1, 1),                 # SamplesPerPixel
+                _entry(277, 3, 1, c),                 # SamplesPerPixel
                 _entry(278, 4, 1, h),                 # RowsPerStrip
                 _entry(279, 4, 1, len(data)),         # StripByteCounts
                 _entry(284, 3, 1, 1),                 # PlanarConfig: chunky

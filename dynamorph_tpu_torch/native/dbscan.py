@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -24,15 +24,17 @@ def _lib() -> ctypes.CDLL:
 
 
 def grid_dbscan(positions: np.ndarray, eps: float, min_samples: int,
-                shape: Tuple[int, int]) -> np.ndarray:
+                shape: Tuple[int, int],
+                threads: Optional[int] = None) -> np.ndarray:
     """DBSCAN labels (int32, -1 = noise) of UNIQUE integer (y, x) points
     on a grid of ``shape`` (the frame's).
 
     The occupancy grid keeps one index per pixel, so duplicate points would
     diverge from sklearn; they raise ValueError (the pipeline's
     ``np.argwhere`` coordinates are unique by construction). The per-point
-    core test runs on min(8, cpu_count) host threads (labels are identical
-    for any count); the native call releases the GIL.
+    core test runs on ``threads`` host threads, min(8, cpu_count) when None
+    (labels are identical for any count); the native call releases the
+    GIL, so callers may also cluster several frames at once.
     """
     positions = np.ascontiguousarray(positions, dtype=np.int32)
     n = len(positions)
@@ -47,7 +49,8 @@ def grid_dbscan(positions: np.ndarray, eps: float, min_samples: int,
     if len(np.unique(keys)) != n:
         raise ValueError("grid_dbscan: duplicate points (the grid solver "
                          "needs unique pixel coordinates)")
-    threads = min(8, os.cpu_count() or 1)
+    if threads is None:
+        threads = min(8, os.cpu_count() or 1)
     labels = np.empty(n, np.int32)
     rc = _lib().grid_dbscan_mt(positions, n, shape[0], shape[1], float(eps),
                                int(min_samples), int(threads), labels)

@@ -47,7 +47,9 @@ _FILTER2 = disk_filter(21, strict=True)   # (un-)masking of the centre cell
 def _conv_same(x: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
     """Batched single-channel 2-D convolution, zero-padded "same".
     x: (N, H, W) float32 -> (N, H, W)."""
-    k = torch.from_numpy(kernel).to(x.device)[None, None]
+    # non_blocking: a small pageable upload is staged at once and does not
+    # wait for the work queued on the stream
+    k = torch.from_numpy(kernel).to(x.device, non_blocking=True)[None, None]
     return F.conv2d(x[:, None], k, padding=kernel.shape[0] // 2)[:, 0]
 
 
@@ -143,3 +145,41 @@ def median_background(raw: torch.Tensor, bg_prob: torch.Tensor,
     hi = (count // 2).clamp(min=0)
     mid = vals[:, torch.stack([lo, hi])]                    # (C, 2)
     return (mid[:, 0] + mid[:, 1]) * 0.5
+
+
+def pack_mask_bits(mask: torch.Tensor) -> torch.Tensor:
+    """Pack an (H, W) bool mask into (H, W // 8) uint8, little-endian bit
+    order, on the mask's device (``pack_mask_bits``,
+    dynamorph_tpu/ops/patch.py:119-130): ``np.unpackbits(...,
+    bitorder="little")`` inverts it on the host. The fused stage ships the
+    foreground to the host at 1 bit a pixel. W must be a multiple of 8."""
+    h, w = mask.shape
+    if w % 8:
+        raise ValueError(f"pack_mask_bits: width {w} is not a multiple of 8")
+    bits = mask.reshape(h, w // 8, 8).to(torch.uint8)
+    shifts = torch.arange(8, dtype=torch.uint8, device=mask.device)
+    return torch.sum(bits << shifts, dim=-1, dtype=torch.uint8)
+
+
+def scatter_label_map(coords: torch.Tensor, labels: torch.Tensor,
+                      shape: Tuple[int, int]) -> torch.Tensor:
+    """(pixel, label) lists -> an (H, W) int32 label map on their device,
+    -1 where no pixel is listed: the device dual of ``labels_to_map``
+    (``scatter_label_map``, dynamorph_tpu/ops/patch.py:133-142).
+
+    coords: (N, 2) integer (y, x); labels: (N,) integer. As in the JAX
+    package (``mode="drop"``), a negative index counts from the end and a
+    row still outside the map is dropped: it is sent to one spare slot past
+    the map, so no index is out of bounds and nothing syncs with the host.
+    """
+    h, w = shape
+    y = coords[:, 0].to(torch.int64)
+    x = coords[:, 1].to(torch.int64)
+    y = torch.where(y < 0, y + h, y)
+    x = torch.where(x < 0, x + w, x)
+    inside = (y >= 0) & (y < h) & (x >= 0) & (x < w)
+    flat = torch.where(inside, y * w + x, h * w)
+    lab = torch.full((h * w + 1,), -1, dtype=torch.int32,
+                     device=coords.device)
+    lab.scatter_(0, flat, labels.to(torch.int32))
+    return lab[:h * w].view(h, w)

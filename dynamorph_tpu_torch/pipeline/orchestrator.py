@@ -1,4 +1,4 @@
-"""One-command pipeline orchestration, staged — the port of
+"""One-command pipeline orchestration — the port of
 ``dynamorph_tpu/pipeline/orchestrator.py``.
 
 Runs any span of the stage graph over one experiment directory with
@@ -7,11 +7,13 @@ per-stage timing (``stage_timer``) and skip-if-output-exists resume.
 Stage order: segmentation -> instance_segmentation -> extract_patches ->
 build_trajectories -> assemble -> process -> trajectory_matching -> pca.
 (Preprocessing runs separately via run_preproc: it maps over different
-directories.)
+directories.) With ``patch.fused`` the three front-end stages run as one,
+``seg_patch_fused`` (pipeline/fused.py); with
+``latent_encoding.streaming`` too, the front end, assemble's resize and
+process run as ``seg_patch_stream`` (pipeline/stream.py), and assemble
+keeps only its relation half.
 
-One process drives one card, so a stage that fails raises at once. The
-fused front end (``patch.fused``) and streaming encode
-(``latent_encoding.streaming``) are not ported yet and refuse.
+One process drives one card, so a stage that fails raises at once.
 """
 from __future__ import annotations
 
@@ -27,25 +29,18 @@ from ..io.compact import resolve_any
 from ..io.prefetch import AsyncWriter, Prefetcher
 from ..io.sites import group_sites_by_well, site_supp_folder
 from .dim_reduction import dim_reduction
-from .patch import (_refuse_fused, build_trajectories, extract_patches,
-                    instance_segmentation)
+from .fused import seg_patch_fused
+from .patch import build_trajectories, extract_patches, instance_segmentation
 from .patch_vae import (assemble_vae, load_well_inputs, process_vae,
-                        trajectory_matching)
+                        resolve_latent_weights, trajectory_matching)
 from .segmentation import segmentation
+from .stream import assemble_relations, seg_patch_stream
 
 log = logging.getLogger(__name__)
 
 STAGES = ["segmentation", "instance_segmentation", "extract_patches",
           "build_trajectories", "assemble", "process",
           "trajectory_matching", "pca"]
-
-
-def _refuse_streaming(config) -> None:
-    if config.latent_encoding.streaming:
-        raise NotImplementedError(
-            "latent_encoding.streaming: true (the streaming encode, "
-            "pipeline/stream.py) is not ported yet; it comes with ROADMAP "
-            "slice C, after the fused stage")
 
 
 def _well_outputs_exist(raw_dir: str, well: str, names: Sequence[str]) -> bool:
@@ -69,8 +64,9 @@ def run_pipeline(raw_dir: str, supp_dir: str, sites: Sequence[str], config,
         stages: subset of STAGES to run (default: all).
         resume: skip stages whose outputs already exist (extract_patches,
             process and pca have no such check and always run).
-        device: where segmentation, extract_patches, process and the PCA
-            fit run; the other stages run on the host.
+        device: where segmentation, extract_patches, process, the fused
+            and streaming stages and the PCA fit run; the other stages run
+            on the host.
 
     Returns the list of stages actually executed.
     """
@@ -79,8 +75,6 @@ def run_pipeline(raw_dir: str, supp_dir: str, sites: Sequence[str], config,
     if unknown:
         raise ValueError(f"unknown stages {sorted(unknown)}; "
                          f"available: {STAGES}")
-    _refuse_fused(config)
-    _refuse_streaming(config)
     dev = resolve_device(device)
     executed = []
 
@@ -96,29 +90,97 @@ def run_pipeline(raw_dir: str, supp_dir: str, sites: Sequence[str], config,
         executed.append(stage)
 
     wells = group_sites_by_well(sites)
-    run("segmentation",
-        lambda: segmentation(raw_dir, supp_dir, None, sites, config,
-                             device=dev),
-        skip_if=lambda: all(
-            os.path.exists(os.path.join(raw_dir, f"{s}_NNProbabilities.npy"))
-            for s in sites))
-    run("instance_segmentation",
-        lambda: instance_segmentation(raw_dir, supp_dir, sites, config,
-                                      rerun=not resume),
-        skip_if=lambda: _sites_have(supp_dir, sites, "cell_positions.pkl"))
-    run("extract_patches",
-        lambda: extract_patches(raw_dir, supp_dir, sites, config,
-                                device=dev))
+    front_end = {"segmentation", "instance_segmentation", "extract_patches"}
+    fused = config.patch.fused and front_end <= set(stages)
+    if config.patch.fused and not fused and front_end & set(stages):
+        log.warning(
+            "patch.fused requested but stages %s are missing %s — running "
+            "the STAGED front-end instead (the fused stage replaces all "
+            "three)", sorted(front_end & set(stages)),
+            sorted(front_end - set(stages)))
+    streaming = fused and config.latent_encoding.streaming and \
+        {"assemble", "process"} <= set(stages)
+    if fused and not streaming and config.latent_encoding.streaming:
+        log.warning(
+            "latent_encoding.streaming requested but stages are missing "
+            "%s — running the fused front-end + staged assemble/process "
+            "instead", sorted({"assemble", "process"} - set(stages)))
+    if streaming and "VAE" not in config.latent_encoding.network:
+        # the streaming encoder is VAE-family only (pipeline/stream.py)
+        log.warning(
+            "latent_encoding.streaming requested but network '%s' has no "
+            "streaming encode — running the fused front-end + staged "
+            "assemble/process instead", config.latent_encoding.network)
+        streaming = False
+    if fused and (config.patch.fused_site_parallelism or 1) > 1:
+        log.warning("patch.fused_site_parallelism %d ignored: one process "
+                    "drives one card, so sites run one after another",
+                    config.patch.fused_site_parallelism)
+    if streaming:
+        stages = ["seg_patch_stream"] + [s for s in stages
+                                         if s not in front_end and
+                                         s != "process"]
+
+        def _latents_exist(well: str) -> bool:
+            _, _, model_name = resolve_latent_weights(config.latent_encoding)
+            return all(os.path.exists(resolve_any(
+                os.path.join(raw_dir, model_name, f"{well}{n}")))
+                for n in ("_latent_space.pkl", "_latent_space_after.pkl"))
+
+        # rerun=True: the encoder takes the patches from the live frame
+        # hook; the whole stage's resume is the skip rule
+        run("seg_patch_stream",
+            lambda: seg_patch_stream(raw_dir, supp_dir, sites, config,
+                                     rerun=True, patch_type="mat",
+                                     device=dev),
+            skip_if=lambda: all(
+                _well_outputs_exist(raw_dir, w, ["_static_patches.pkl",
+                                                 "_file_paths.pkl"]) and
+                _latents_exist(w) for w in wells))
+    elif fused:
+        stages = ["seg_patch_fused"] + [s for s in stages
+                                        if s not in front_end]
+        run("seg_patch_fused",
+            lambda: seg_patch_fused(raw_dir, supp_dir, sites, config,
+                                    rerun=not resume, device=dev),
+            skip_if=lambda: _sites_have(supp_dir, sites,
+                                        "cell_positions.pkl"))
+    else:
+        run("segmentation",
+            lambda: segmentation(raw_dir, supp_dir, None, sites, config,
+                                 device=dev),
+            skip_if=lambda: all(
+                os.path.exists(os.path.join(raw_dir,
+                                            f"{s}_NNProbabilities.npy"))
+                for s in sites))
+        run("instance_segmentation",
+            lambda: instance_segmentation(raw_dir, supp_dir, sites, config,
+                                          rerun=not resume),
+            skip_if=lambda: _sites_have(supp_dir, sites,
+                                        "cell_positions.pkl"))
+        run("extract_patches",
+            lambda: extract_patches(raw_dir, supp_dir, sites, config,
+                                    device=dev))
     run("build_trajectories",
         lambda: build_trajectories(raw_dir, supp_dir, sites, config),
         skip_if=lambda: _sites_have(supp_dir, sites, "cell_traj.pkl"))
-    run("assemble",
-        lambda: [assemble_vae(raw_dir, supp_dir, ws, config,
-                              patch_type="mat")
-                 for ws in wells.values()],
-        skip_if=lambda: all(_well_outputs_exist(
-            raw_dir, w, ["_static_patches.pkl", "_file_paths.pkl"])
-            for w in wells))
+    if streaming:
+        # file_paths, static_patches and the latents are streamed already
+        run("assemble",
+            lambda: [assemble_relations(raw_dir, supp_dir, ws, config)
+                     for ws in wells.values()],
+            skip_if=lambda: all(_well_outputs_exist(
+                raw_dir, w, ["_static_patches_relations.pkl",
+                             "_static_patches_labels.pkl"])
+                for w in wells))
+    else:
+        run("assemble",
+            lambda: [assemble_vae(raw_dir, supp_dir, ws, config,
+                                  patch_type="mat")
+                     for ws in wells.values()],
+            skip_if=lambda: all(_well_outputs_exist(
+                raw_dir, w, ["_static_patches.pkl", "_file_paths.pkl"])
+                for w in wells))
 
     def _process_all():
         # prefetch the next well's pickles while this one encodes; drain

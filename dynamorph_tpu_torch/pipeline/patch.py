@@ -24,7 +24,7 @@ from typing import Dict, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..core.device import resolve_device
+from ..core.device import resolve_device, upload
 from ..core.profiling import stage_timer
 from ..io.compact import load_stack_any, resolve_any, save_stack, storage_path
 from ..io.pickles import load_pickle, save_pickle
@@ -54,13 +54,12 @@ def dispatch_cell_patches(raw, labels, bg_fill, kept_cells,
     if not kept_cells:
         return None
     dev = torch.device(device)
-    centers = torch.tensor(np.array([(pos[0], pos[1])
-                                     for _, pos in kept_cells], np.int64))
-    ids = torch.tensor([int(cid) for cid, _ in kept_cells], dtype=torch.int32)
+    centers = np.array([(pos[0], pos[1]) for _, pos in kept_cells], np.int64)
+    ids = np.array([int(cid) for cid, _ in kept_cells], np.int32)
     return extract_cell_patches(
         torch.as_tensor(raw, device=dev), torch.as_tensor(labels, device=dev),
-        centers.to(dev), ids.to(dev), torch.as_tensor(bg_fill, device=dev),
-        window_size=window_size)
+        upload(centers, dev), upload(ids, dev),
+        torch.as_tensor(bg_fill, device=dev), window_size=window_size)
 
 
 def fetch_cell_patches(out: Optional[dict]) -> Optional[Dict[str, np.ndarray]]:
@@ -238,18 +237,9 @@ def process_site_build_trajectory(site_supp_files_folder: str,
                 os.path.join(site_supp_files_folder, "cell_traj.pkl"))
 
 
-def _refuse_fused(config) -> None:
-    if config.patch.fused:
-        raise NotImplementedError(
-            "patch.fused: true (the fused seg -> instance -> patch stage, "
-            "pipeline/fused.py) is not ported yet; it comes with ROADMAP "
-            "slice C, the fused stage")
-
-
 def extract_patches(raw_folder: str, supp_folder: str, sites: Sequence[str],
                     config, device: Device = "cuda") -> None:
     """Patch extraction over sites (reference pipeline/patch_VAE.py:22-74)."""
-    _refuse_fused(config)
     dev = resolve_device(device)
     for site in sites:
         site_path = os.path.join(raw_folder, f"{site}.npy")
@@ -289,7 +279,6 @@ def instance_segmentation(raw_folder: str, supp_folder: str,
                           ) -> None:
     """Instance segmentation over sites (reference
     pipeline/segmentation.py:90-141)."""
-    _refuse_fused(config)
     for site in sites:
         site_path = os.path.join(raw_folder, f"{site}.npy")
         seg_path = os.path.join(raw_folder, f"{site}_NNProbabilities.npy")

@@ -242,37 +242,41 @@ def zscore_patch_device(x: torch.Tensor) -> torch.Tensor:
     return (x - mean) / (std + np.finfo(float).eps)
 
 
+def encode_batch(model, x: torch.Tensor, batch_size: int,
+                 normalize: Optional[str] = None):
+    """One encode dispatch: ``x`` (n <= batch_size, C, H, W) float32 on the
+    model's device, zero-padded to ``batch_size`` rows so every dispatch
+    has one shape -> (z_before (n, D*), z_after (n, D*)) on the device.
+    normalize="patch" z-scores each patch (``zscore_patch_device``). The
+    staged encode and the streaming one (pipeline/stream.py) share it, so a
+    patch meets the same arithmetic on both paths."""
+    n = x.shape[0]
+    if n < batch_size:
+        x = torch.cat([x, x.new_zeros((batch_size - n,) + tuple(x.shape[1:]))])
+    if normalize == "patch":
+        x = zscore_patch_device(x)
+    z_b, z_a, _ = model.encode(x)
+    return z_b.reshape(batch_size, -1)[:n], z_a.reshape(batch_size, -1)[:n]
+
+
 def encode_patches(model, dataset: np.ndarray, batch_size: int = 512,
                    normalize: Optional[str] = None,
                    device: Device = "cuda"):
     """Batched encode: (N, C, H, W) -> (z_before (N, D*), z_after (N, D*)),
-    float32 numpy.
-
-    The model is moved to ``device``. The trailing batch is zero-padded to
-    ``batch_size`` so every batch has one shape. normalize="patch" z-scores
-    each patch on the device (``zscore_patch_device``).
-    """
+    float32 numpy, ``encode_batch`` by ``encode_batch`` on ``device`` (the
+    model is moved there)."""
     dev = resolve_device(device)
     model.to(dev)
-    n = len(dataset)
     zbs, zas = [], []
-    for i in range(0, n, batch_size):
-        batch = np.asarray(dataset[i: i + batch_size], dtype=np.float32)
-        if len(batch) < batch_size:
-            pad = batch_size - len(batch)
-            batch = np.concatenate(
-                [batch, np.zeros((pad,) + batch.shape[1:], batch.dtype)], 0)
-        x = torch.from_numpy(batch).to(dev)
-        if normalize == "patch":
-            x = zscore_patch_device(x)
-        z_b, z_a, _ = model.encode(x)
-        zbs.append(z_b.reshape(batch_size, -1))
-        zas.append(z_a.reshape(batch_size, -1))
+    for i in range(0, len(dataset), batch_size):
+        x = torch.from_numpy(np.asarray(dataset[i: i + batch_size],
+                                        dtype=np.float32)).to(dev)
+        z_b, z_a = encode_batch(model, x, batch_size, normalize)
+        zbs.append(z_b)
+        zas.append(z_a)
     if not zbs:
         raise ValueError("encode_patches: empty dataset")
-    z_b = torch.cat(zbs, 0)[:n].cpu().numpy()
-    z_a = torch.cat(zas, 0)[:n].cpu().numpy()
-    return z_b, z_a
+    return torch.cat(zbs, 0).cpu().numpy(), torch.cat(zas, 0).cpu().numpy()
 
 
 def resolve_latent_weights(le):

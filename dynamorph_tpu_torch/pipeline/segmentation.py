@@ -4,7 +4,8 @@ pipeline/segmentation.py:13-87).
 
 For each site, ``<raw>/<site>.npy`` goes through the U-Net on the card and
 ``<site>_NNProbabilities.npy``, ``<site>.png`` and ``<site>_NNpred.png`` are
-written beside it.
+written beside it. ``segmentation_validation`` draws the clustered cells'
+rims onto the raw frames (host work).
 """
 from __future__ import annotations
 
@@ -16,6 +17,9 @@ import numpy as np
 import torch
 
 from ..core.profiling import stage_timer
+from ..io.pickles import load_pickle
+from ..io.sites import site_supp_folder
+from ..io.tiff import write_multipage_tiff
 from ..seg.inference import predict_whole_map
 from ..seg.model import Segment
 
@@ -62,3 +66,90 @@ def segmentation(raw_folder: str, supp_folder: str, val_folder: str,
                     n_supp=si.num_pred_rnd, mode=si.inference_mode)
         except Exception:  # per-site failure tolerance (reference :76-86)
             log.exception("Error in predicting site %s", site)
+
+
+def segmentation_validation(raw_folder: str, supp_folder: str,
+                            val_folder: str, sites: Sequence[str],
+                            config) -> None:
+    """Each cell's rim drawn onto the raw frames, green for a non-MG cell
+    and red for an MG one, as one multipage uint16 RGB TIFF a site:
+    ``<supp>/validation_images/<site>_predictions.tif`` (``segmentation_
+    validation``, dynamorph_tpu/pipeline/segmentation.py:61-118; reference
+    pipeline/segmentation_validation.py:67-168). Host work: it reads the
+    site's stack, ``_NNProbabilities.npy`` and instance pickles.
+
+    ``segmentation_inference.seg_val_cat``: "mg", "nonmg" or "both" draw
+    the kept cells of that class (classified from the probabilities, as the
+    JAX package does: the reference's filters read a cell_positions layout
+    the pipeline no longer writes); "unfiltered" draws every cluster.
+    """
+    category = config.segmentation_inference.seg_val_cat
+    target = os.path.join(supp_folder, "validation_images")
+    os.makedirs(target, exist_ok=True)
+    for site in sites:
+        raw_stack = np.load(os.path.join(raw_folder, f"{site}.npy"))
+        nn_stack = np.load(os.path.join(raw_folder,
+                                        f"{site}_NNProbabilities.npy"))
+        supp = site_supp_folder(supp_folder, site)
+        cell_pixels = load_pickle(
+            os.path.join(supp, "cell_pixel_assignments.pkl"))
+        cell_positions = load_pickle(os.path.join(supp, "cell_positions.pkl"))
+
+        stack = []
+        for t_point in range(len(raw_stack)):
+            mat = raw_stack[t_point, 0, 0] if raw_stack.ndim == 5 \
+                else raw_stack[t_point, :, :, 0]
+            mat = np.stack([mat] * 3, 2)
+            positions, inds = cell_pixels[t_point]
+            if category == "unfiltered":
+                ids = [i for i in np.unique(inds) if i >= 0]
+            else:
+                ids = []
+                for cid, _ in cell_positions[t_point]:
+                    pts = positions[inds == cid]
+                    probs = nn_stack[t_point][
+                        :, 0, pts[:, 0], pts[:, 1]].mean(1)
+                    # classes (background, non-MG, MG): MG when class 2
+                    # outweighs class 1, as the rim colours say
+                    is_mg = probs[2] > probs[1]
+                    if category == "both" or \
+                            (category == "mg" and is_mg) or \
+                            (category == "nonmg" and not is_mg):
+                        ids.append(cid)
+            for cid in ids:
+                new_mat = _append_segmentation(positions, inds, cid,
+                                               nn_stack, t_point, mat)
+                if new_mat is not None:
+                    mat = new_mat
+            stack.append(mat)
+
+        out = os.path.join(target, f"{site}_predictions.tif")
+        write_multipage_tiff(out, np.stack(stack, 0).astype("uint16"))
+        log.info("saved validation overlay %s", out)
+
+
+def find_rim(cell_positions: np.ndarray) -> np.ndarray:
+    """The boundary pixels of a pixel set: those without all four
+    neighbours in it (reference segmentation_validation.py:10-17)."""
+    masks = set(tuple(r) for r in cell_positions)
+    inner = set((r[0] - 1, r[1]) for r in masks) & \
+        set((r[0] + 1, r[1]) for r in masks) & \
+        set((r[0], r[1] - 1) for r in masks) & \
+        set((r[0], r[1] + 1) for r in masks)
+    return np.array(list(masks - inner))
+
+
+def _append_segmentation(positions, inds, cell_id, nn_stack, t_point, mat):
+    """Draw one cell's rim onto ``mat`` (H, W, 3), green for non-MG and red
+    for MG (reference segmentation_validation.py:171-195); None for noise.
+    ``nn_stack`` is (T, n_classes, 1, H, W)."""
+    if cell_id < 0:
+        return None
+    pts = positions[inds == cell_id]
+    rim = find_rim(pts)
+    mask_identities = nn_stack[t_point][:, 0, pts[:, 0], pts[:, 1]].mean(1)
+    if mask_identities[1] > mask_identities[2]:
+        mat[(rim[:, 0], rim[:, 1])] = np.array([0, 65535, 0]).reshape((1, 3))
+    else:
+        mat[(rim[:, 0], rim[:, 1])] = np.array([65535, 0, 0]).reshape((1, 3))
+    return mat

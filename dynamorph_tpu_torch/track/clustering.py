@@ -74,17 +74,24 @@ def cluster_foreground_positions(positions: np.ndarray,
                                  ct_thr: Tuple[int, int] = (500, 12000),
                                  instance_map: bool = True,
                                  map_path: Optional[str] = None,
-                                 dbscan_thr: Tuple[int, int] = (10, 250)):
+                                 dbscan_thr: Tuple[int, int] = (10, 250),
+                                 threads: Optional[int] = None):
     """DBSCAN and the size and window filters over precomputed foreground
     pixel coordinates (row-major, as ``np.argwhere`` yields them)
-    (reference instance_clustering.py:58-137 after the threshold)."""
+    (reference instance_clustering.py:58-137 after the threshold).
+
+    ``threads`` caps the native solver's core-test threads (None:
+    ``grid_dbscan``'s default; the labels are identical for any count): the
+    fused stage, which clusters several frames at once, divides the cores
+    among them."""
     from ..native.dbscan import grid_dbscan
 
     if len(positions) < MIN_FG_PIXELS:
         return [], np.zeros((0, 2), dtype=int), np.zeros((0,), dtype=int)
 
     positions_labels = grid_dbscan(positions, eps=dbscan_thr[0],
-                                   min_samples=dbscan_thr[1], shape=shape)
+                                   min_samples=dbscan_thr[1], shape=shape,
+                                   threads=threads)
     cell_ids, point_cts = np.unique(positions_labels, return_counts=True)
 
     cell_positions = []

@@ -543,16 +543,6 @@ def test_combine_dataset_matches_jax(chain, tmp_path):
         2 * len(fs)
 
 
-def test_fused_refused(chain, tmp_path):
-    """patch.fused: true names the unported fused stage instead of
-    quietly running the staged one."""
-    raw, supp = chain["port"]
-    cfg = _yaml(tmp_path / "fused.yml", "patch", raw, supp, fused="true")
-    with pytest.raises(NotImplementedError, match="ROADMAP slice C"):
-        run_patch.main(["-m", "extract_patches", "-c", cfg, "--device",
-                        "cpu"])
-
-
 def _artifacts(dirs, pkg):
     """Every artifact of the five stages under one package's dirs, keyed
     by its name with the package's roots cut off, paths inside it too."""
@@ -617,25 +607,6 @@ def test_run_pipeline_stage_lists_match_jax(chain, monkeypatch):
     ours = run_pipeline.main(["-c", pipe, "--stages", *skippable,
                               "--device", "cpu"])
     assert ours == {raw: resumed} and resumed == []
-
-
-@pytest.mark.parametrize("case", ["fused", "streaming", "--fused"])
-def test_run_pipeline_refuses_unported_paths(chain, tmp_path, case):
-    """patch.fused, latent_encoding.streaming and --fused name the queue
-    item that ports them instead of running the staged graph."""
-    raw, supp = chain["pipeline"]
-    extra = {"fused": "patch:\n  fused: true\n",
-             "streaming": "latent_encoding:\n  streaming: true\n",
-             "--fused": ""}[case]
-    cfg = tmp_path / "cfg.yml"
-    cfg.write_text(f"patch:\n  raw_dirs: ['{raw}']\n"
-                   f"  supp_dirs: ['{supp}']\n"
-                   + extra.replace("patch:\n", ""))
-    argv = ["-c", str(cfg), "--device", "cpu"]
-    if case == "--fused":
-        argv.append("--fused")
-    with pytest.raises(NotImplementedError, match="ROADMAP slice C"):
-        run_pipeline.main(argv)
 
 
 def test_run_pipeline_raises_without_card(chain):
@@ -832,6 +803,37 @@ def test_grid_dbscan_matches_sklearn(case):
     assert ours.dtype == np.int32
     np.testing.assert_array_equal(ours, ref)
     assert len(np.unique(ours)) > 2
+
+
+@pytest.mark.parametrize("threads", [1, 3])
+def test_cluster_threads_give_the_same_labels(threads):
+    """``threads`` splits the native solver's core test: on the first frame
+    of the crowded site (a disk of radius 14 around each of its 144 cells,
+    and scattered noise pixels) the labels and the kept cells are the same
+    for 1 and 3 threads as for the default count."""
+    from dynamorph_tpu_torch.native.dbscan import grid_dbscan
+    from dynamorph_tpu_torch.track.clustering import \
+        cluster_foreground_positions
+
+    positions, _ = _crowded_site(t_len=1)
+    shape = (2200, 2200)
+    r = np.random.RandomState(9)
+    yy, xx = np.mgrid[-14:15, -14:15]
+    disk = np.argwhere(yy ** 2 + xx ** 2 < 196) - 14
+    fg = np.zeros(shape, bool)
+    for _, centre in positions[0]:
+        pts = disk + centre
+        fg[pts[:, 0], pts[:, 1]] = True
+    fg |= r.rand(*shape) < 2e-4
+    pts = np.argwhere(fg)
+    labels = grid_dbscan(pts, eps=10, min_samples=250, shape=shape,
+                         threads=threads)
+    np.testing.assert_array_equal(
+        labels, grid_dbscan(pts, eps=10, min_samples=250, shape=shape))
+    assert len(np.unique(labels[labels >= 0])) == 144
+    ours = cluster_foreground_positions(pts, shape, threads=threads)
+    _assert_same(ours, cluster_foreground_positions(pts, shape))
+    assert len(ours[0]) == 144
 
 
 def test_grid_dbscan_refuses_bad_points():

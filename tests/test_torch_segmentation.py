@@ -332,13 +332,119 @@ def test_time_slices_refused(models):
         predict_whole_map(_stack(6), pm, time_slices=3)
 
 
-@pytest.mark.parametrize("method", ["segmentation_validation"])
-def test_unported_methods_refused(method, tmp_path):
+def test_fused_stage_real_unet_matches_jax(models, tmp_path, monkeypatch):
+    """The fused seg -> instance -> patch stage (pipeline/fused.py) with
+    this module's U-Net: its probabilities within 1e-5 of the JAX fused
+    stage's on the fused tests' 3-frame 64 x 64 site. The U-Net runs at
+    batch 1 on the whole frame in both packages."""
+    from test_torch_fused import SITE, T, _make_site, _run_jax_fused, \
+        run_port_fused
+
+    jm, pm = models
+    for name in ("jax", "port"):
+        _make_site(tmp_path / name, SITE)
+    _run_jax_fused(str(tmp_path / "jax" / f"{SITE}.npy"),
+                   str(tmp_path / "jax" / "supp"), monkeypatch, model=jm)
+    run_port_fused(str(tmp_path / "port" / f"{SITE}.npy"),
+                   str(tmp_path / "port" / "supp"), model=pm)
+    ours = np.load(tmp_path / "port" / f"{SITE}_NNProbabilities.npy")
+    ref = np.load(tmp_path / "jax" / f"{SITE}_NNProbabilities.npy")
+    assert ours.shape == ref.shape == (T, 3, 1, 64, 64)
+    assert ours.dtype == ref.dtype == np.float32
+    np.testing.assert_allclose(ours, ref, atol=PROB_ATOL, rtol=0)
+    assert np.ptp(ref) > 0.1               # the check sees real structure
+    assert os.path.exists(tmp_path / "port" / "supp" / "cell_positions.pkl")
+
+
+def _validation_site(raw, supp):
+    """A 3-frame 2 x 48 x 56 site with 3 disk cells a frame: float64 raw
+    intensities, (T, 3, 1, H, W) probabilities in which cell 1 is MG
+    (class 2 over class 1) and the others non-MG, the instance pickles
+    (cell 2 dropped from the kept cells, noise pixels labelled -1)."""
+    r = np.random.RandomState(12)
+    t_len, h, w = 3, 48, 56
+    yy, xx = np.mgrid[:h, :w]
+    raw_stack = r.randint(20000, 30000, (t_len, 2, 1, h, w)).astype(float)
+    probs = np.zeros((t_len, 3, 1, h, w))
+    probs[:, 0] = 0.9
+    probs[:, 1] = 0.05
+    probs[:, 2] = 0.05
+    positions, assignments = {}, {}
+    for t in range(t_len):
+        lab = np.full((h, w), -1)
+        for cid, (cy, cx) in enumerate([(12, 12), (14, 40), (34, 26)]):
+            cell = (yy - cy - t) ** 2 + (xx - cx) ** 2 < 7 ** 2
+            lab[cell] = cid
+            probs[t, :, 0][:, cell] = [[0.1], [0.3], [0.6]] if cid == 1 \
+                else [[0.1], [0.7], [0.2]]
+        lab[0, :3] = -1
+        pix = np.argwhere(lab >= 0)
+        pix = np.concatenate([pix, [[0, 0], [0, 1]]])
+        labels = np.concatenate([lab[pix[:-2, 0], pix[:-2, 1]], [-1, -1]])
+        assignments[t] = (pix, labels.astype(np.int32))
+        positions[t] = [(np.int32(c), np.array(p)) for c, p in
+                        enumerate([(12 + t, 12), (14 + t, 40)])]
+    np.save(os.path.join(raw, "B2-Site_0.npy"), raw_stack)
+    np.save(os.path.join(raw, "B2-Site_0_NNProbabilities.npy"), probs)
+    folder = os.path.join(supp, "B2-supps", "B2-Site_0")
+    os.makedirs(folder)
+    from dynamorph_tpu_torch.io.pickles import save_pickle
+
+    save_pickle(positions, os.path.join(folder, "cell_positions.pkl"))
+    save_pickle(assignments, os.path.join(folder,
+                                          "cell_pixel_assignments.pkl"))
+
+
+@pytest.mark.parametrize("category", ["mg", "nonmg", "both", "unfiltered"])
+def test_segmentation_validation_matches_jax(category, tmp_path):
+    """``run_segmentation -m segmentation_validation --device cpu`` writes
+    the JAX package's multipage uint16 RGB TIFF, byte for byte and as cv2
+    reads it: green rims for non-MG cells, red for MG, of the kept cells
+    of the category (every cluster for "unfiltered")."""
+    dirs = {}
+    for pkg in ("jax", "port"):
+        raw, supp = tmp_path / f"{pkg}_raw", tmp_path / f"{pkg}_supp"
+        raw.mkdir()
+        _validation_site(str(raw), str(supp))
+        dirs[pkg] = (str(raw), str(supp))
+    cfg = JaxPC(segmentation_inference=JaxSI(seg_val_cat=category))
+    jax_pipeline.segmentation_validation(*dirs["jax"], None, ["B2-Site_0"],
+                                         cfg)
     yml = tmp_path / "cfg.yml"
-    yml.write_text("segmentation_inference:\n  raw_dirs: []\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP slice C"):
-        run_segmentation.main(["-m", method, "-c", str(yml), "--device",
-                               "cpu"])
+    yml.write_text(
+        "segmentation_inference:\n"
+        f"  raw_dirs: ['{dirs['port'][0]}']\n"
+        f"  supp_dirs: ['{dirs['port'][1]}']\n"
+        f"  seg_val_cat: '{category}'\n")
+    run_segmentation.main(["-m", "segmentation_validation", "-c", str(yml),
+                           "--device", "cpu"])
+    paths = {pkg: os.path.join(dirs[pkg][1], "validation_images",
+                               "B2-Site_0_predictions.tif") for pkg in dirs}
+    with open(paths["port"], "rb") as a, open(paths["jax"], "rb") as b:
+        assert a.read() == b.read()
+    ok, pages = cv2.imreadmulti(paths["port"], flags=cv2.IMREAD_UNCHANGED)
+    ok_j, pages_j = cv2.imreadmulti(paths["jax"], flags=cv2.IMREAD_UNCHANGED)
+    assert ok and ok_j and len(pages) == len(pages_j) == 3
+    for page, ref in zip(pages, pages_j):
+        assert page.dtype == np.uint16 and page.shape == (48, 56, 3)
+        np.testing.assert_array_equal(page, ref)
+    # cv2 reads BGR: red rims (MG, cell 1) and green ones (non-MG)
+    red = (pages[0] == [0, 0, 65535]).all(-1).sum()
+    green = (pages[0] == [0, 65535, 0]).all(-1).sum()
+    want = {"mg": (True, False), "nonmg": (False, True),
+            "both": (True, True), "unfiltered": (True, True)}[category]
+    assert (red > 0, green > 0) == want
+
+
+def test_find_rim_matches_jax():
+    from dynamorph_tpu.pipeline.segmentation import find_rim as jax_find_rim
+    from dynamorph_tpu_torch.pipeline.segmentation import find_rim
+
+    yy, xx = np.mgrid[:20, :20]
+    pts = np.argwhere((yy - 9) ** 2 + (xx - 10) ** 2 < 36)
+    ours, ref = find_rim(pts), jax_find_rim(pts)
+    assert sorted(map(tuple, ours)) == sorted(map(tuple, ref))
+    assert 0 < len(ours) < len(pts)
 
 
 def test_run_segmentation_raises_without_card(site_dirs, tmp_path):
