@@ -128,11 +128,30 @@ passed prints the final ``{"ok": true, ...}`` line:
    end and phase 8's direct-mode frame; and the fused stage's host work
    (a frame's stacks pickle and clustering, the site's probability save
    and previews) timed apart.
+12. the other encoders through the CLIs: ``run_training`` for VAE, IWAE
+   and AAE at the z16 widths (phase 4's), each with the loss weights of
+   phase 5, and for ResNet50 at batch_size 768 with n_pos_samples 4 (192
+   anchors a step), one epoch of 1,536 synthetic patches labelled by
+   trajectory (7 + 2 ResNet steps, 2 + 1 VAE-family steps); each writes a
+   model.pt that loads strict and that ``run_vae -m process`` then encodes
+   phase 4's well with (the VAE family writes its latent as both pickles,
+   ResNet50 the 128-d projection as ``_latent_space.pkl`` only). For each
+   network: no VQ kernel launched; the first 64 patches' latents card vs
+   CPU within 1e-5 of max |z| beside a TF32 control; one train step of
+   seeded weights on 8 patches card vs CPU, losses and gradients held
+   against float64 as in phase 6 (with a wider factor), beside a control
+   step run with TF32 on; the encode rate on a
+   device-resident batch of 512 and end to end; the train step at batch
+   768 on a device-resident batch (ms, peak memory, device time by kernel
+   family, torch.profiler); for ResNet50 the all-triplet miner's forward +
+   backward alone at B = 768 (ms, share of the step, its peak memory).
+   This path reaches no Pallas kernel (no codebook).
    Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and the
    ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import json
@@ -752,7 +771,7 @@ def phase_step_vs_cpu(torch, dev):
                  model.named_parameters()}
         bufs = {n: b.detach().cpu() for n, b in model.named_buffers()
                 if "running" in n}
-        return {k: float(v) for k, v in losses.items()}, grads, bufs
+        return {k: float(v.detach()) for k, v in losses.items()}, grads, bufs
 
     l_gpu, g_gpu, b_gpu = run(dev, recording)
     l_cpu, g_cpu, b_cpu = run("cpu", replaying)
@@ -2860,6 +2879,555 @@ def phase_fused_stream(torch, vq, root, dev, weights, card, staged, seg):
     return dict(runs=runs, staged_front_s=staged_s, host=host)
 
 
+# ---------------------------------------------------------------- phase 12
+#
+# Slice E1's networks through the real CLIs: VAE, IWAE and AAE at the z16
+# widths of configs/config_example.yml:61-65 (phase 4's NET), ResNet50 at
+# the training section's batch_size 768 and n_pos_samples 4 (:99-104: 192
+# anchors, 768 patches a step), the loss weights of TRAIN_NET. Depth is
+# cut to one epoch of 1,536 synthetic patches (trajectories of TRAJ_LEN,
+# the label of a patch its trajectory) and phase 4's one well.
+
+VAE_FAMILY = ("VAE", "IWAE", "AAE")
+E1_NETS = VAE_FAMILY + ("ResNet50",)
+N_POS = 4
+E1_TRAIN_PATCHES = 1536
+E1_CHECK = 8                # patches of the card-vs-CPU train step
+E1_ENCODE_CHECK = 64        # patches of the card-vs-CPU encode
+# card vs CPU latents of these networks: 1e-5 of max |z|, ten times under
+# phase 4's LATENT_ATOL. fp32 on both sides lands at 2-9e-7 of max |z|
+# (measured on an H100 80GB HBM3 at 700 W); TF32 on the VAE family's
+# narrow convolutions at 1.3-2.7e-4, which LATENT_ATOL would see by a
+# factor of 1.3-2.7 only.
+E1_ENCODE_ATOL = 1e-5
+# one train step card vs CPU, at phase 6's rule: each weight tensor's
+# gradient within E1_GRAD_VS_CPU x the CPU's error + E1_GRAD_FLOOR of
+# float64 (relative L2). Each fp32 step is held against float64 on its own
+# side of every kink: a ReLU pre-activation (or a triplet hinge, or a
+# max-pool's runner-up) within rounding of its switch takes its side from
+# rounding, and one such element, spread over its channel by batch norm's
+# backward, moves whole gradients by 1e-4-1e-2 (on an H100 the z16 family
+# at 8 of 48 default inits, ResNet18 at 11 of 16: PERF.md section 6). So
+# the float64 steps replay the fp32 step's choices (kink_branches), and
+# the flips are counted.
+E1_GRAD_VS_CPU = 3.0
+E1_GRAD_FLOOR = 1e-5
+E1_FAMILIES = (
+    ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
+    ("convolutions (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "cudnn",
+                              "winograd", "fft", "cf32", "xmma")),
+    ("matrix products (cuBLAS: fc layers, the miner's Gram matrix)",
+     ("gemm", "cutlass")),
+    ("Adam (foreach)", ("adam", "multi_tensor")),
+)
+E1_OTHER = ("elementwise and reductions (ReLU, pooling, the miner's "
+            "(B, B, B) hinge, masks, counts, augmentation)")
+
+
+def write_e1_training_dir(root):
+    """The raw dir all four networks train on: float32 (N, 2, 1, 128, 128)
+    patches, trajectory labels and relations."""
+    from dynamorph_tpu_torch.io.pickles import save_pickle
+
+    raw = os.path.join(root, "e1_train_raw")
+    os.makedirs(raw)
+    data = blob_patches(np.random.RandomState(SEED + 12), E1_TRAIN_PATCHES)
+    save_pickle(data[:, :, None].astype(np.float32),
+                os.path.join(raw, "im_static_patches.pkl"))
+    save_pickle(np.arange(E1_TRAIN_PATCHES) // TRAJ_LEN,
+                os.path.join(raw, "im_static_patches_labels.pkl"))
+    save_pickle(trajectory_relations(E1_TRAIN_PATCHES),
+                os.path.join(raw, "im_static_patches_relations.pkl"))
+    return raw, data
+
+
+def e1_training_config(root, raw, network):
+    widths = (f"  num_hiddens: {NET['num_hiddens']}\n"
+              f"  num_residual_hiddens: {NET['num_residual_hiddens']}\n"
+              if network in VAE_FAMILY else "")
+    cfg = os.path.join(root, f"e1_train_{network}.yml")
+    with open(cfg, "w") as f:
+        f.write("training:\n"
+                f"  raw_dirs: ['{raw}']\n"
+                f"  supp_dirs: ['{os.path.join(root, 'e1_supp')}']\n"
+                f"  weights_dirs: ['{os.path.join(root, 'e1_out')}']\n"
+                f"  network: '{network}'\n" + widths
+                + "".join(f"  {k}: {TRAIN_NET[k]}\n" for k in (
+                    "num_inputs", "num_residual_layers", "weight_matching",
+                    "margin", "w_a", "w_t", "w_n"))
+                + f"  n_epochs: 1\n  learn_rate: 0.0001\n"
+                f"  batch_size: {TRAIN_BATCH}\n  n_pos_samples: {N_POS}\n"
+                "  val_split_ratio: 0.15\n  patience: 100\n"
+                f"  model_name: '{network}'\n")
+    return cfg, os.path.join(root, "e1_out", network)
+
+
+def e1_model(network):
+    from dynamorph_tpu_torch.models import build_model
+    from dynamorph_tpu_torch.models.resnet_simclr import EncodeProject
+
+    if network.startswith("ResNet"):
+        return EncodeProject(arch=network)
+    return build_model(network, num_inputs=2, **NET)
+
+
+def e1_encode(torch, model, x):
+    """The latent: ``EncodeProject.encode``'s z, the VAE family's z_before."""
+    out = model.encode(x)
+    return out if torch.is_tensor(out) else out[0]
+
+
+def e1_tf32_forward(torch, model, x):
+    """The encode's forward outside ``fp32_strict``, TF32 on: what the
+    card-vs-CPU check would see if the encode left TF32 to cuDNN."""
+    from dynamorph_tpu_torch.models import common
+
+    saved = torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.no_grad(), common.batch_stats(model, False):
+            if hasattr(model, "convnet"):
+                return model.projection(model.convnet(x))
+            z = model.enc[2:](model.enc[1](model.enc[0](x)))
+            return z[:, :model.num_hiddens]
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def kink_branches(torch, masks, replay):
+    """Inside the block every kink of these models' train steps, ``F.relu``
+    (each ReLU of the networks), ``Tensor.relu_`` (the all-triplet miner's
+    hinge) and ``F.max_pool2d`` (the ResNet stem's max-pool), appends its
+    choice to ``masks`` in call order (a mask ``x > 0``, or the pool's
+    argmax); with ``replay`` it takes the recorded choice instead, so a
+    float64 step follows an fp32 step's branches. A replayed active hinge
+    passes ``x`` with gradient 1, at least 2e-16, so that the miner counts
+    it as the fp32 step did."""
+    F = torch.nn.functional
+    relu, relu_, max_pool = F.relu, torch.Tensor.relu_, F.max_pool2d
+    queue = iter(masks)
+
+    def branch(x, inplace=False):
+        if replay:
+            return x * next(queue).to(x.device, x.dtype)
+        masks.append((x > 0).cpu())
+        return relu(x, inplace)
+
+    def hinge(x):
+        if replay:
+            lifted = x + (x.detach().clamp(min=2e-16) - x.detach())
+            return x.copy_(torch.where(next(queue).to(x.device), lifted,
+                                       0.0))
+        masks.append((x > 0).cpu())
+        return relu_(x)
+
+    def pool(x, *args, **kwargs):
+        if replay:
+            idx = next(queue).to(x.device)
+            return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+        y, idx = max_pool(x, *args, **kwargs, return_indices=True)
+        masks.append(idx.cpu())
+        return y
+
+    F.relu, torch.Tensor.relu_, F.max_pool2d = branch, hinge, pool
+    try:
+        yield
+    finally:
+        F.relu, torch.Tensor.relu_, F.max_pool2d = relu, relu_, max_pool
+
+
+def e1_step_grads(torch, model, network, x, noise, labels, fp32=True,
+                  masks=None, replay=False):
+    """One train-mode forward and backward (no optimizer step): (losses,
+    {weight: gradient as float64 on the host}, the ResNet's embedding as
+    float64 on the host or None). ``fp32=False`` is the TF32
+    control: the models' own ``fp32_strict`` blocks are swapped for no-ops
+    for the call, so forward and backward run with PyTorch's TF32
+    defaults. ``masks`` records (or with ``replay`` replays) the choices
+    at every kink (``kink_branches``)."""
+    from dynamorph_tpu_torch.core.device import fp32_strict
+    from dynamorph_tpu_torch.models import losses as losses_mod
+    from dynamorph_tpu_torch.models import resnet_simclr, vae
+
+    mods = (vae, resnet_simclr, losses_mod)
+    saved = [m.fp32_strict for m in mods]
+    tf32 = torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32
+    if not fp32:
+        for m in mods:
+            m.fp32_strict = contextlib.nullcontext
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with fp32_strict() if fp32 else contextlib.nullcontext(), \
+                kink_branches(torch, masks, replay) if masks is not None \
+                else contextlib.nullcontext():
+            if network.startswith("ResNet"):
+                z, losses = model.apply(x, labels, train=True)
+            else:
+                z, losses = None, model.apply(x, train=True, **noise)[1]
+            losses["total_loss"].backward()
+    finally:
+        for m, f in zip(mods, saved):
+            m.fp32_strict = f
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    grads = {n: p.grad.detach().cpu().double()
+             for n, p in model.named_parameters()
+             if p.grad is not None and n.endswith(".weight")}
+    return ({k: float(v.detach()) for k, v in losses.items()}, grads,
+            None if z is None else z.detach().cpu().double())
+
+
+def e1_seeded_model(torch, network):
+    """The network with seeded weights, batch norm moved off the
+    identity."""
+    from torch import nn
+
+    torch.manual_seed(SEED + 12)
+    model = e1_model(network)
+    g = torch.Generator().manual_seed(SEED + 12)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
+                n = m.num_features
+                m.running_mean.copy_(0.2 * torch.randn(n, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=g))
+                m.weight.copy_(0.7 + 0.6 * torch.rand(n, generator=g))
+                if m.bias.requires_grad:
+                    m.bias.copy_(0.2 * torch.randn(n, generator=g))
+    return model
+
+
+def e1_step_vs_cpu(torch, network, base, data, dev, tag, weights):
+    """A train step of ``base`` on the card against the CPU, each held
+    against the same step in float64 on the CPU taken on its own side of
+    every ReLU, hinge and max-pool (``kink_branches``; phase 6's rule), and
+    the TF32 control,
+    held against float64 on the card's side. ``weights`` names the weights
+    in the log. The noise is drawn once on the CPU and fed to all."""
+    from dynamorph_tpu_torch.train.data import zscore
+
+    x = torch.from_numpy(zscore(data[:E1_CHECK]).astype(np.float32))
+    labels = torch.arange(E1_CHECK) // (E1_CHECK // 2)
+    g = torch.Generator().manual_seed(SEED + 12)
+    zshape = (E1_CHECK, NET["num_hiddens"], 16, 16)
+    noise = {}
+    if network == "VAE":
+        noise["eps"] = torch.randn(zshape, generator=g)
+    if network == "IWAE":
+        noise["fixed_eps"] = torch.randn((base.k,) + zshape, generator=g)
+
+    def run(device, dtype, fp32=True, masks=None, replay=False):
+        model = copy.deepcopy(base).to(device=device, dtype=dtype)
+        return e1_step_grads(
+            torch, model, network, x.to(device, dtype),
+            {k: v.to(device, dtype) for k, v in noise.items()},
+            labels.to(device), fp32, masks, replay)
+
+    m_gpu, m_cpu, m_f64 = [], [], []
+    l_gpu, g_gpu, z_gpu = run(dev, torch.float32, masks=m_gpu)
+    l_cpu, g_cpu, z_cpu = run("cpu", torch.float32, masks=m_cpu)
+    run("cpu", torch.float64, masks=m_f64)
+    l_f64, g_f64, z_f64 = run("cpu", torch.float64, masks=m_gpu, replay=True)
+    l_f64c, g_f64c, z_f64c = run("cpu", torch.float64, masks=m_cpu,
+                                 replay=True)
+    _, g_ctrl, z_ctrl = run(dev, torch.float32, fp32=False)
+
+    def flips(masks):
+        return sum(int((a != b).sum()) for a, b in zip(masks, m_f64))
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-6)
+
+    def rel_l2(a, b):
+        return float(torch.norm(a - b) / max(float(torch.norm(b)), 1e-30))
+
+    # the losses card vs CPU at phase 6's rtol; the fraction of positive
+    # triplets, a count of hinges, within one triplet. The triplet loss
+    # reads the embedding alone, which a ResNet50 step in fp32 leaves
+    # about 7e-5 (relative L2) from float64 on either device, and the loss
+    # follows it by 1e-5-1e-4 (on an H100): so the embedding is held to
+    # float64 by the gradients' rule below, and the loss to the float64
+    # miner on the card's own embedding at phase 6's rtol.
+    n_trip = sum(int((labels == a).sum() - 1) * int((labels != a).sum())
+                 for a in labels)
+    if z_gpu is not None:
+        l_ref = dict(l_cpu, total_loss=float(
+            base.miner(labels, z_gpu)[0]))
+    else:
+        l_ref = l_cpu
+    loss_ratio = {k: abs(l_gpu[k] - l_cpu[k]) * n_trip
+                  if k == "positive_triplet"
+                  else rel(l_gpu[k], l_ref[k]) / STEP_LOSS_RTOL
+                  for k in l_cpu}
+    worst_k = max(loss_ratio, key=loss_ratio.get)
+    e_cpu = {n: rel_l2(g_cpu[n], g_f64c[n]) for n in g_f64}
+
+    def ratio(grads):
+        r = {n: rel_l2(grads[n], g_f64[n]) / (
+            E1_GRAD_VS_CPU * e_cpu[n] + E1_GRAD_FLOOR) for n in g_f64}
+        worst = max(r, key=r.get)
+        return r[worst], worst
+
+    if z_gpu is not None:
+        g_gpu = dict(g_gpu, embedding=z_gpu)
+        g_ctrl = dict(g_ctrl, embedding=z_ctrl)
+        g_f64 = dict(g_f64, embedding=z_f64)
+        e_cpu["embedding"] = rel_l2(z_cpu, z_f64c)
+    grad_ratio, worst = ratio(g_gpu)
+    ctrl_ratio, ctrl_worst = ratio(g_ctrl)
+    e_worst = rel_l2(g_gpu[worst], g_f64[worst])
+    n_choices = sum(int(m.numel()) for m in m_f64)
+    log(f"  {network} train step on {E1_CHECK} patches, {weights} weights, "
+        f"card vs CPU: ReLU, hinge and max-pool choices against float64's "
+        f"own: card "
+        f"{flips(m_gpu)}, CPU {flips(m_cpu)} of {n_choices} flipped (each "
+        f"float64 step below takes its fp32 step's choices); losses card vs "
+        f"CPU (the triplet loss against the float64 miner on the card's "
+        f"embedding): worst {worst_k} at {loss_ratio[worst_k]:.3f} of the "
+        f"limit (rtol {STEP_LOSS_RTOL:g}; the positive-triplet fraction one "
+        f"triplet of {n_trip}; against float64: card "
+        f"{rel(l_gpu[worst_k], l_f64[worst_k]):.3e}, CPU "
+        f"{rel(l_cpu[worst_k], l_f64c[worst_k]):.3e}); gradients (and a "
+        f"ResNet's embedding) vs float64: worst {worst} at "
+        f"{grad_ratio:.3f} of the limit (card error <= {E1_GRAD_VS_CPU:g} x "
+        f"CPU error + {E1_GRAD_FLOOR:g}, relative L2: card {e_worst:.3e}, "
+        f"CPU {e_cpu[worst]:.3e}); TF32 control (forward and backward with "
+        f"TF32 on): {ctrl_worst} at {ctrl_ratio:.3f} of the limit{tag}")
+    if loss_ratio[worst_k] > 1:
+        raise AssertionError(f"{network} ({weights}): train-step loss "
+                             f"{worst_k} at {loss_ratio[worst_k]:.3f} of its "
+                             "limit")
+    if grad_ratio > 1:
+        raise AssertionError(f"{network} ({weights}): gradient {worst} at "
+                             f"{grad_ratio:.3f} of its limit")
+    if not ctrl_ratio > 1:
+        raise AssertionError(f"{network} ({weights}): the TF32 control step "
+                             f"lands at {ctrl_ratio:.3f} of the limit: the "
+                             "check cannot see TF32")
+    return dict(loss_rel=rel(l_gpu[worst_k], l_cpu[worst_k]),
+                grad_ratio=grad_ratio, control=ctrl_ratio, worst=worst,
+                card=e_worst,
+                cpu=e_cpu[worst], flips_card=flips(m_gpu),
+                flips_cpu=flips(m_cpu))
+
+
+def e1_step_timing(torch, network, model, dev, tag):
+    """ms per train step at batch 768 on a device-resident batch (the
+    VQ-VAE family with augmentation and a relation block; ResNet50 with
+    192 labels x 4), its peak memory and its device time by kernel
+    family; for ResNet50 also the miner's forward + backward alone."""
+    from dynamorph_tpu_torch.models.losses import AllTripletMiner
+    from dynamorph_tpu_torch.train.data import zscore
+    from dynamorph_tpu_torch.train.steps import (make_train_step,
+                                                 make_triplet_steps)
+
+    x = torch.from_numpy(zscore(blob_patches(
+        np.random.RandomState(SEED + 13), TRAIN_BATCH)).astype(np.float32))
+    x = x.to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4, betas=(0.9, 0.999),
+                           eps=1e-8)
+    if network.startswith("ResNet"):
+        labels = (torch.arange(TRAIN_BATCH) // N_POS).to(dev)
+        step, _ = make_triplet_steps(model, opt)
+
+        def one_step():
+            return step(x, labels)
+        iters = 3
+    else:
+        rel = torch.from_numpy(relation_block(TRAIN_BATCH)).to(dev)
+        step = make_train_step(model, opt, augment=True,
+                               generator=torch.Generator(device=dev)
+                               .manual_seed(SEED))
+
+        def one_step():
+            return step(x, rel, None)
+        iters = 5
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_cuda(torch, one_step, iters)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{network} train step, batch {TRAIN_BATCH}, device-resident: "
+        f"{step_ms:.6f} ms, {TRAIN_BATCH / step_ms * 1e3:.1f} patches/s; "
+        f"peak device memory {peak:.3f} GB{tag}")
+    prof = profile_steps(torch, one_step, 2, step_ms,
+                         families=E1_FAMILIES, other=E1_OTHER, tag=tag)
+    out = dict(step_ms=step_ms, peak_gb=peak, profile=prof)
+    if network.startswith("ResNet"):
+        emb = torch.randn(TRAIN_BATCH, 128, device=dev, requires_grad=True)
+        miner = AllTripletMiner(margin=TRAIN_NET["margin"])
+        lab = (torch.arange(TRAIN_BATCH) // N_POS).to(dev)
+
+        def mine():
+            emb.grad = None
+            loss, _ = miner(lab, emb)
+            loss.backward()
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        miner_ms = time_cuda(torch, mine, 5)
+        miner_peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+        out.update(miner_ms=miner_ms, miner_share=miner_ms / step_ms,
+                   miner_peak_gb=miner_peak)
+        log(f"the all-triplet miner alone (B={TRAIN_BATCH}, D=128, forward "
+            f"+ backward, CUDA events): {miner_ms:.6f} ms, "
+            f"{miner_ms / step_ms:.4f} of the step; its own peak memory "
+            f"{miner_peak:.3f} GB above its inputs{tag}")
+    return out
+
+
+def phase_other_encoders(torch, vq, root, dev, card, well):
+    phase("12. other encoders: run_training and run_vae -m process with "
+          "VAE, IWAE, AAE (z16 widths) and ResNet50 (batch 768, 4 "
+          "positives), on cuda")
+    from dynamorph_tpu_torch.cli import run_training, run_vae
+    from dynamorph_tpu_torch.io.pickles import load_pickle
+    from dynamorph_tpu_torch.models.jax_import import (
+        load_reference_checkpoint)
+    from dynamorph_tpu_torch.pipeline.patch_vae import encode_patches
+    from dynamorph_tpu_torch.train.data import zscore_patch
+
+    tag = f" [{card}]"
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    train_raw, train_data = write_e1_training_dir(root)
+    raw, data = well["raw"], well["data"]
+    n_val = int(np.floor(0.15 * E1_TRAIN_PATCHES))
+    n_train = E1_TRAIN_PATCHES - n_val
+    runs = {}
+    for network in E1_NETS:
+        r = runs[network] = {}
+        # (b) and (c): run_training, one epoch
+        cfg, out = e1_training_config(root, train_raw, network)
+        per_step = TRAIN_BATCH // N_POS if network.startswith("ResNet") \
+            else TRAIN_BATCH
+        steps = -(-n_train // per_step) + -(-n_val // per_step)
+        vq.vq_lookup.launches = vq.vq_indices.launches = 0
+        t0 = time.perf_counter()
+        model, hist = run_training.main(["-c", cfg, "--device", dev.type])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        r["launches"] = {"vq_lookup": vq.vq_lookup.launches,
+                         "vq_indices": vq.vq_indices.launches}
+        if len(hist) != 1 or not all(np.isfinite(v) for split in
+                                     ("train", "val")
+                                     for v in hist[0][split].values()):
+            raise AssertionError(f"{network}: history {hist}")
+        weights_pt = os.path.join(out, "model.pt")
+        fresh = e1_model(network)
+        fresh.load_state_dict(load_reference_checkpoint(weights_pt),
+                              strict=True)
+        r.update(train_wall=wall, train_steps=steps, hist=hist[0])
+        unit = f"anchors x {N_POS}" if per_step != TRAIN_BATCH \
+            else "patches"
+        log(f"run_training {network}: {wall:.3f} s wall for one epoch of "
+            f"{E1_TRAIN_PATCHES} patches ({steps} steps of {per_step} {unit}"
+            f", {wall / steps * 1e3:.1f} ms a step end to end, host "
+            f"batching included); train "
+            + json.dumps({k: round(v, 6) for k, v in hist[0]["train"].items()})
+            + " val "
+            + json.dumps({k: round(v, 6) for k, v in hist[0]["val"].items()})
+            + f"; model.pt loads strict; vq kernel launches {r['launches']}"
+            + tag)
+
+        # (a): run_vae -m process from that model.pt, on phase 4's well
+        pcfg = os.path.join(root, f"e1_process_{network}.yml")
+        with open(pcfg, "w") as f:
+            f.write("latent_encoding:\n"
+                    f"  raw_dirs: ['{raw}']\n"
+                    f"  supp_dirs: ['{os.path.join(root, 'supp')}']\n"
+                    f"  weights: ['{out}']\n"
+                    "  fov: ['C5-Site_0', 'C5-Site_1']\n"
+                    f"  save_output: False\n  network: '{network}'\n"
+                    f"  num_hiddens: {NET['num_hiddens']}\n"
+                    f"  num_residual_hiddens: {NET['num_residual_hiddens']}\n")
+        vq.vq_lookup.launches = vq.vq_indices.launches = 0
+        t0 = time.perf_counter()
+        run_vae.main(["-m", "process", "-c", pcfg, "--device", dev.type])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        r["launches"]["vq_lookup"] += vq.vq_lookup.launches
+        r["launches"]["vq_indices"] += vq.vq_indices.launches
+        if any(r["launches"].values()):
+            raise AssertionError(f"{network}: a VQ kernel was launched on a "
+                                 "path without a codebook")
+        lat_dir = os.path.join(raw, network)
+        names = sorted(os.listdir(lat_dir))
+        z = load_pickle(os.path.join(lat_dir, "C5_latent_space.pkl"))
+        if network in VAE_FAMILY:
+            want_names = ["C5_latent_space.pkl", "C5_latent_space_after.pkl"]
+            width = NET["num_hiddens"] * 16 * 16
+            after = load_pickle(os.path.join(lat_dir, want_names[1]))
+            if not np.array_equal(z, after):
+                raise AssertionError(f"{network}: the two pickles differ")
+        else:
+            want_names, width = ["C5_latent_space.pkl"], 128
+        if names != want_names or z.shape != (N_PATCHES, width) or \
+                z.dtype != np.float32 or not np.isfinite(z).all():
+            raise AssertionError(f"{network}: process wrote {names}, "
+                                 f"{z.shape} {z.dtype}")
+
+        # card vs CPU: the first 64 patches' latents, and the TF32 control
+        cpu = e1_model(network)
+        cpu.load_state_dict(load_reference_checkpoint(weights_pt))
+        x_raw = data[:E1_ENCODE_CHECK, :, 0]
+        if network in VAE_FAMILY:
+            z_cpu, _ = encode_patches(cpu, x_raw, E1_ENCODE_CHECK,
+                                      normalize="patch", device="cpu")
+        else:
+            z_cpu = cpu.encode_batched(
+                zscore_patch(x_raw).astype(np.float32), "z",
+                E1_ENCODE_CHECK)
+        limit = E1_ENCODE_ATOL * float(np.abs(z_cpu).max())
+        err = float(np.abs(z[:E1_ENCODE_CHECK] - z_cpu).max())
+        card_model = copy.deepcopy(cpu).to(dev)
+        xz = torch.from_numpy(zscore_patch(x_raw).astype(np.float32)).to(dev)
+        z_tf32 = e1_tf32_forward(torch, card_model, xz).reshape(
+            E1_ENCODE_CHECK, -1).cpu().numpy()
+        ctrl = float(np.abs(z_tf32 - z_cpu).max())
+        r.update(process_wall=wall, encode_err=err, encode_limit=limit,
+                 encode_tf32=ctrl)
+        log(f"run_vae -m process {network}: {wall:.3f} s wall for "
+            f"{N_PATCHES} patches, {N_PATCHES / wall:.1f} patches/s end to "
+            f"end; wrote {names} ({N_PATCHES}, {width}) float32; latents card"
+            f" vs CPU, first {E1_ENCODE_CHECK} patches: max abs {err:.3e} "
+            f"(limit {limit:.3e}: {E1_ENCODE_ATOL} of max |z|); TF32 control "
+            f"{ctrl:.3e} (the check would "
+            f"{'catch' if ctrl > limit else 'miss'} it){tag}")
+        if not err <= limit:
+            raise AssertionError(f"{network}: latents card vs CPU {err:.3e}")
+        if not ctrl > limit:
+            raise AssertionError(f"{network}: the TF32 encode control "
+                                 f"{ctrl:.3e} is within the limit "
+                                 f"{limit:.3e}: the check cannot see TF32")
+
+        # the device-resident encode rate at batch 512
+        xb = torch.from_numpy(zscore_patch(data[:BATCH, :, 0])
+                              .astype(np.float32)).to(dev)
+        enc_ms = time_cuda(torch, lambda: e1_encode(torch, card_model, xb), 10)
+        r["resident_patches_s"] = BATCH / enc_ms * 1e3
+        log(f"{network} encode, device-resident batch of {BATCH}: "
+            f"{enc_ms:.6f} ms, {r['resident_patches_s']:.1f} patches/s"
+            + tag)
+        # on seeded weights (batch norm off the identity) and on the
+        # weights run_training has just written
+        r["step_check"] = {
+            w: e1_step_vs_cpu(torch, network, m, train_data, dev, tag, w)
+            for w, m in (("seeded", e1_seeded_model(torch, network)),
+                         ("trained", copy.deepcopy(fresh)))}
+        r["timing"] = e1_step_timing(torch, network, fresh.to(dev), dev, tag)
+        del model, fresh, cpu, card_model, xb, xz
+        torch.cuda.empty_cache()
+    log(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
 def main() -> int:
     # one card: the first of those visible, so device_count() is what the
     # run uses (set before torch initialises CUDA)
@@ -2911,6 +3479,9 @@ def main() -> int:
                                    smi)
         fused_run = phase_fused_stream(torch, vq, root, dev,
                                        main_run["weights"], smi, raw_pcs, seg)
+        other = phase_other_encoders(
+            torch, vq, root, dev, smi,
+            dict(raw=os.path.join(root, "raw"), data=main_run["data"]))
 
     z16 = timed["z16 encode"]
     ti = train_timed["indices"]
@@ -2938,6 +3509,8 @@ def main() -> int:
             fused_run["runs"]["fused"]["launches"]["vq_lookup"],
         "launches_stream_path":
             fused_run["runs"]["streaming"]["launches"]["vq_lookup"],
+        "launches_other_encoders_path": sum(
+            r["launches"]["vq_lookup"] for r in other.values()),
         "z32": {k: timed["z32 encode"][k] for k in
                 ("ms", "ms_per_call", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "bound_share", "rowwise_ms")},
@@ -2967,6 +3540,8 @@ def main() -> int:
             fused_run["runs"]["fused"]["launches"]["vq_indices"],
         "launches_stream_path":
             fused_run["runs"]["streaming"]["launches"]["vq_indices"],
+        "launches_other_encoders_path": sum(
+            r["launches"]["vq_indices"] for r in other.values()),
         "flips_vs_plain": {k: indices[k]["flips"] for k in indices},
         "flip_rate_vs_f64": {k: indices[k]["f64_rate"] for k in indices},
     }]
@@ -2993,7 +3568,11 @@ def main() -> int:
         f"{fused_run['staged_front_s']:.3f} s); plate PCA fit "
         f"{raw_pcs['plate']['fit_s']:.3f} s ({raw_pcs['plate']['n']} x "
         f"{LATENT_LEN}); UMAP grid {raw_pcs['umap']['total_s']:.3f} s "
-        f"({raw_pcs['umap']['n']} latents); whole script "
+        f"({raw_pcs['umap']['n']} latents); other encoders, train step at "
+        f"batch {TRAIN_BATCH} / encode patches/s (resident): " + ", ".join(
+            f"{n} {r['timing']['step_ms']:.3f} ms / "
+            f"{r['resident_patches_s']:.1f}" for n, r in other.items())
+        + f"; whole script "
         f"{time.perf_counter() - t_start:.1f} s [{smi}]")
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())

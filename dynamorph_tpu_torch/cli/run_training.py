@@ -1,19 +1,21 @@
-"""Model training entry point, VQ-VAE family (reference run_training.py:
-771-966; the VAE branch of ``dynamorph_tpu/cli/run_training.py:27-128``).
+"""Model training entry point (reference run_training.py:771-966;
+``dynamorph_tpu/cli/run_training.py``): the VQ-VAE family (VQ_VAE_z16,
+VQ_VAE_z32, VAE, IWAE, AAE) or a ResNet/SimCLR encoder (ResNet18, 50,
+101, 152) with the triplet miner.
 
 Usage: python -m dynamorph_tpu_torch.cli.run_training -c <config.yml>
        [--device cuda|cpu]
 
 Dataflow: per raw_dir, load ``im_static_patches`` (pickle or compact npz),
 its labels and relations; z-score; concatenate the relations across dirs
-with cumulative offsets; reorder trajectory-contiguously; train with the
-time-matching loss on one device. The ResNet/SimCLR triplet branch is not
-ported yet and refuses with a message.
+with cumulative offsets. The VQ-VAE family is reordered
+trajectory-contiguously and trained with the time-matching loss; a ResNet
+samples positive sets from the labels (``train/triplet_data.py``) and
+trains with the triplet miner. One device either way.
 """
 from __future__ import annotations
 
 import argparse
-import inspect
 import os
 from typing import Optional, Sequence
 
@@ -23,37 +25,54 @@ from ..config import load_config
 from ..core.device import resolve_device
 from ..io.compact import load_array_any
 from ..io.pickles import load_pickle
-from ..models.registry import get_model_cls
+from ..models.registry import build_model
+from ..models.resnet_simclr import EncodeProject
 from ..pipeline.patch_vae import _load_model_weights
 from ..train import data as data_utils
 from ..train.checkpoint import MODEL_FILE
-from ..train.trainer import train_vqvae
-
-_NOT_PORTED = ("training network {network!r} (the ResNet/SimCLR triplet "
-               "branch) is not ported yet; it comes with ROADMAP slice E "
-               "(other model families)")
+from ..train.trainer import train_triplet, train_vqvae
+from ..train.triplet_data import TripletDataset, augment_img
 
 
-def _init_kwargs(cls) -> set:
-    """The keyword arguments that ``cls(...)`` names in its ``__init__``
-    chain (the JAX branch filters by the dataclass's fields)."""
-    names = set()
-    for klass in cls.__mro__:
-        init = klass.__dict__.get("__init__")
-        if init is None:
-            continue
-        names |= {p.name for p in inspect.signature(init).parameters.values()
-                  if p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY)}
-    names.discard("self")
-    return names
+def _start_weights(model, path: Optional[str]) -> None:
+    """``start_model_path``: a reference-format model.pt, or a directory
+    holding one (a port training run's output); an orbax directory
+    raises."""
+    if not path:
+        return
+    if os.path.isdir(path) and os.path.exists(os.path.join(path, MODEL_FILE)):
+        path = os.path.join(path, MODEL_FILE)
+    _load_model_weights(model, path)
+
+
+def _run_triplet(tr, dataset, labels, model_dir, dev):
+    """The ResNet branch (dynamorph_tpu/cli/run_training.py:129-162): a
+    seeded train/val split, positive sets of ``n_pos_samples`` patches
+    with the augmentation and the draws on the global ``np.random``, and
+    ``batch_size / n_pos_samples`` anchors a step."""
+    train_set, train_labels, val_set, val_labels = \
+        data_utils.train_val_split(dataset, labels,
+                                   val_split_ratio=tr.val_split_ratio, seed=0)
+    tri_train = TripletDataset(
+        train_labels, lambda i: augment_img(train_set[i]), tr.n_pos_samples)
+    tri_val = TripletDataset(
+        val_labels, lambda i: augment_img(val_set[i]), tr.n_pos_samples)
+    batch_size_adj = int(np.floor(tr.batch_size / tr.n_pos_samples))
+    model = EncodeProject(arch=tr.network, num_inputs=tr.num_inputs,
+                          margin=tr.margin)
+    _start_weights(model, tr.start_model_path)
+    return train_triplet(model, tri_train, tri_val, model_dir,
+                         n_epochs=tr.n_epochs, lr=tr.learn_rate,
+                         batch_size=batch_size_adj, patience=tr.patience,
+                         earlystop_metric=tr.earlystop_metric,
+                         retrain=tr.retrain, log_step_offset=tr.start_epoch,
+                         device=dev)
 
 
 def run(config, device: str = "cuda"):
     """Train the configured network. Returns (model, history)."""
     dev = resolve_device(device)
     tr = config.training
-    if "ResNet" in tr.network:
-        raise NotImplementedError(_NOT_PORTED.format(network=tr.network))
     dir_sets = list(zip(tr.supp_dirs, tr.weights_dirs, tr.raw_dirs))
 
     datasets, masks, relations, labels_list = [], [], [], []
@@ -85,14 +104,16 @@ def run(config, device: str = "cuda"):
     relations, labels = data_utils.concat_relations(
         relations, labels_list, offsets=id_offsets)
     model_dir = os.path.join(dir_sets[-1][1], tr.model_name)
+    if "ResNet" in tr.network:
+        return _run_triplet(tr, dataset, labels, model_dir, dev)
 
     dataset, relation_mat, order = data_utils.reorder_with_trajectories(
         dataset, relations, seed=123)
     labels = labels[np.asarray(order)]
     if mask is not None:
         mask = mask[np.asarray(order)]
-    model_cls = get_model_cls(tr.network)
-    model_kwargs = dict(
+    model = build_model(
+        tr.network,
         num_inputs=tr.num_inputs,
         num_hiddens=tr.num_hiddens,
         num_residual_hiddens=tr.num_residual_hiddens,
@@ -102,17 +123,7 @@ def run(config, device: str = "cuda"):
         weight_matching=tr.weight_matching,
         w_a=tr.w_a, w_t=tr.w_t, w_n=tr.w_n, margin=tr.margin,
         vq_train_precision=tr.vq_train_precision)
-    accepted = _init_kwargs(model_cls)
-    model = model_cls(
-        **{k: v for k, v in model_kwargs.items() if k in accepted})
-    if tr.start_model_path:
-        # a reference-format model.pt, or a directory holding one (a port
-        # training run's output); an orbax directory raises
-        path = tr.start_model_path
-        if os.path.isdir(path) and \
-                os.path.exists(os.path.join(path, MODEL_FILE)):
-            path = os.path.join(path, MODEL_FILE)
-        _load_model_weights(model, path)
+    _start_weights(model, tr.start_model_path)
     # retrain=False lets an interrupted run continue from the output dir's
     # checkpoint (weights, optimizer moments, epoch); retrain=True starts a
     # fresh optimizer and epoch count

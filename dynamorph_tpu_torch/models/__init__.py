@@ -1,2 +1,3 @@
+from .vae import AAEModel, IWAEModel, VAEModel
 from .vqvae import VQVAEz16, VQVAEz32
-from .registry import get_model_cls
+from .registry import build_model, get_model_cls

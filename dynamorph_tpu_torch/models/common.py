@@ -5,9 +5,28 @@ Activations are NCHW throughout.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+
+@contextlib.contextmanager
+def batch_stats(module: nn.Module, train: bool):
+    """Every submodule of ``module`` in mode ``train`` inside the block
+    (batch norm then uses the batch statistics, or the running ones), and
+    back in its own mode after it. The port's ``apply(train=...)`` decides
+    how batch norm runs, so ``model.train()`` / ``model.eval()`` change no
+    result."""
+    flipped = [m for m in module.modules() if m.training != train]
+    for m in flipped:
+        m.training = train
+    try:
+        yield
+    finally:
+        for m in flipped:
+            m.training = not train
 
 
 class ResidualStack(nn.Module):
@@ -64,6 +83,63 @@ def fused_preconv_stride_conv(conv0: nn.Conv2d, conv1: nn.Conv2d,
                           device=x.device)
         y = y + F.conv2d(ones, kb, None, stride, padding)
     return y
+
+
+def z16_encoder(ni: int, nh: int, nrh: int, nrl: int,
+                extra_out: int = 0) -> nn.Sequential:
+    """The z16 encoder trunk at the reference's Sequential indices
+    (HiddenStateExtractor/vae.py:273-286, shared by VQ_VAE_z16, VAE, IWAE
+    and AAE, :523-537): 1x1 lift, three 4x4 stride-2 convs and a 3x3 conv,
+    each but the first followed by batch norm (ReLU between), then the
+    residual stack at ``enc.12``. ``extra_out`` adds the VAE's 1x1
+    widening conv at ``enc.13`` (mean and log-std halves)."""
+    layers = [
+        nn.Conv2d(ni, nh // 2, 1),                  # 0
+        nn.Conv2d(nh // 2, nh // 2, 4, 2, 1),       # 1
+        nn.BatchNorm2d(nh // 2),                    # 2
+        nn.ReLU(),                                  # 3
+        nn.Conv2d(nh // 2, nh, 4, 2, 1),            # 4
+        nn.BatchNorm2d(nh),                         # 5
+        nn.ReLU(),                                  # 6
+        nn.Conv2d(nh, nh, 4, 2, 1),                 # 7
+        nn.BatchNorm2d(nh),                         # 8
+        nn.ReLU(),                                  # 9
+        nn.Conv2d(nh, nh, 3, 1, 1),                 # 10
+        nn.BatchNorm2d(nh),                         # 11
+        ResidualStack(nh, nrh, nrl),                # 12
+    ]
+    if extra_out:
+        layers.append(nn.Conv2d(nh, extra_out, 1))  # 13
+    return nn.Sequential(*layers)
+
+
+def apply_z16_encoder(enc: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+    """``enc(x)`` with conv0 (1x1) + conv1 (4x4 s2) fused into one conv,
+    exactly (``fused_preconv_stride_conv``)."""
+    h = fused_preconv_stride_conv(enc[0], enc[1], x)
+    return enc[2:](h)
+
+
+def z16_decoder(ni: int, nh: int) -> nn.Sequential:
+    """The z16 decoder (reference vae.py:288-295 == :539-546): three 4x4
+    stride-2 transposed convs with ReLU, then a 1x1 conv to ``ni``
+    channels."""
+    return nn.Sequential(
+        nn.ConvTranspose2d(nh, nh // 2, 4, 2, 1),   # 0
+        nn.ReLU(),                                  # 1
+        nn.ConvTranspose2d(nh // 2, nh // 4, 4, 2, 1),  # 2
+        nn.ReLU(),                                  # 3
+        nn.ConvTranspose2d(nh // 4, nh // 4, 4, 2, 1),  # 4
+        nn.ReLU(),                                  # 5
+        nn.Conv2d(nh // 4, ni, 1),                  # 6
+    )
+
+
+def channel_var_buffer(channel_var, num_inputs: int) -> torch.Tensor:
+    """The reference's ``channel_var`` (a frozen parameter there, a buffer
+    here: it is in the ``state_dict`` either way), shaped (1, C, 1, 1)."""
+    return torch.as_tensor(channel_var, dtype=torch.float32).reshape(
+        1, num_inputs, 1, 1)
 
 
 # ---------------------------------------------------------------------------

@@ -57,6 +57,12 @@ class BasicBlock(nn.Module):
         return F.relu(h + sc)
 
 
+def stem_max_pool(h: torch.Tensor) -> torch.Tensor:
+    """The ResNet stem's 3x3 stride-2 max-pool, padded with -inf as the
+    JAX reduce_window (unet.py:66-69)."""
+    return F.max_pool2d(h, 3, 2, 1)
+
+
 class ResNet34Encoder(nn.Module):
     """Stem + layer1..4; returns the bottleneck and the skips at strides
     2, 4, 8 and 16 (``UNet._encode``, unet.py:132-153)."""
@@ -77,8 +83,7 @@ class ResNet34Encoder(nn.Module):
     def forward(self, x: torch.Tensor):
         h = F.relu(self.bn1(self.conv1(x)))
         skips = [h]
-        # -inf padding, as the JAX reduce_window (unet.py:66-69)
-        h = F.max_pool2d(h, 3, 2, 1)
+        h = stem_max_pool(h)
         for i in range(1, 5):
             h = getattr(self, f"layer{i}")(h)
             if i < 4:

@@ -25,8 +25,6 @@ the JAX reference.
 """
 from __future__ import annotations
 
-import contextlib
-
 import torch
 from torch import nn
 
@@ -77,38 +75,22 @@ class VQVAEBase(nn.Module):
         self.vq_train_precision = vq_train_precision
         self.vq = _Codebook(num_embeddings, num_hiddens)
         self.register_buffer(
-            "channel_var",
-            torch.as_tensor(channel_var, dtype=torch.float32).reshape(
-                1, num_inputs, 1, 1))
+            "channel_var", common.channel_var_buffer(channel_var, num_inputs))
 
     # subclasses: _encode(x), _decode(z), _recon_weighted, _tm_uses_after;
     # each ends its __init__ in eval mode
-
-    @contextlib.contextmanager
-    def _batch_stats(self, train: bool):
-        """Every submodule in mode ``train`` inside the block (batch norm
-        then uses the batch statistics, or the running ones), and back in
-        its own mode after it."""
-        flipped = [m for m in self.modules() if m.training != train]
-        for m in flipped:
-            m.training = train
-        try:
-            yield
-        finally:
-            for m in flipped:
-                m.training = not train
 
     def encode(self, x: torch.Tensor):
         """(B, C, H, W) -> (z_before, z_after, indices), channel-first
         latents. The ``process_VAE`` hot path (reference
         pipeline/patch_VAE.py:445-452), batched."""
-        with torch.no_grad(), fp32_strict(), self._batch_stats(False):
+        with torch.no_grad(), fp32_strict(), common.batch_stats(self, False):
             z_before = self._encode(x)
             z_after, idx = _lookup_nchw(z_before, self.vq.w.weight)
         return z_before, z_after, idx
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
-        with torch.no_grad(), fp32_strict(), self._batch_stats(False):
+        with torch.no_grad(), fp32_strict(), common.batch_stats(self, False):
             return self._decode(z)
 
     def _vq(self, z_before: torch.Tensor, train: bool):
@@ -140,7 +122,7 @@ class VQVAEBase(nn.Module):
         relation block (uint8 or float, codes 0/1/2); ``batch_mask`` is
         (B, C, H, W) float."""
         with torch.set_grad_enabled(train), fp32_strict(), \
-                self._batch_stats(train):
+                common.batch_stats(self, train):
             z_before = self._encode(x)
             z_after, c_loss, perplexity = self._vq(z_before, train)
             decoded = self._decode(z_after)
@@ -180,38 +162,14 @@ class VQVAEz16(VQVAEBase):
 
     def __init__(self, num_inputs: int = 2, num_hiddens: int = 16, **kw):
         super().__init__(num_inputs=num_inputs, num_hiddens=num_hiddens, **kw)
-        nh, ni = num_hiddens, num_inputs
-        self.enc = nn.Sequential(
-            nn.Conv2d(ni, nh // 2, 1),                  # 0
-            nn.Conv2d(nh // 2, nh // 2, 4, 2, 1),       # 1
-            nn.BatchNorm2d(nh // 2),                    # 2
-            nn.ReLU(),                                  # 3
-            nn.Conv2d(nh // 2, nh, 4, 2, 1),            # 4
-            nn.BatchNorm2d(nh),                         # 5
-            nn.ReLU(),                                  # 6
-            nn.Conv2d(nh, nh, 4, 2, 1),                 # 7
-            nn.BatchNorm2d(nh),                         # 8
-            nn.ReLU(),                                  # 9
-            nn.Conv2d(nh, nh, 3, 1, 1),                 # 10
-            nn.BatchNorm2d(nh),                         # 11
-            common.ResidualStack(nh, self.num_residual_hiddens,
-                                 self.num_residual_layers),  # 12
-        )
-        self.dec = nn.Sequential(
-            nn.ConvTranspose2d(nh, nh // 2, 4, 2, 1),   # 0
-            nn.ReLU(),                                  # 1
-            nn.ConvTranspose2d(nh // 2, nh // 4, 4, 2, 1),  # 2
-            nn.ReLU(),                                  # 3
-            nn.ConvTranspose2d(nh // 4, nh // 4, 4, 2, 1),  # 4
-            nn.ReLU(),                                  # 5
-            nn.Conv2d(nh // 4, ni, 1),                  # 6
-        )
+        self.enc = common.z16_encoder(num_inputs, num_hiddens,
+                                      self.num_residual_hiddens,
+                                      self.num_residual_layers)
+        self.dec = common.z16_decoder(num_inputs, num_hiddens)
         self.eval()
 
     def _encode(self, x):
-        # conv0 (1x1) + conv1 (4x4 s2) fused into one conv, exactly
-        h = common.fused_preconv_stride_conv(self.enc[0], self.enc[1], x)
-        return self.enc[2:](h)
+        return common.apply_z16_encoder(self.enc, x)
 
     def _decode(self, z):
         return self.dec(z)

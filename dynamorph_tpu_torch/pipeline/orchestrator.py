@@ -28,6 +28,7 @@ from ..core.profiling import stage_timer
 from ..io.compact import resolve_any
 from ..io.prefetch import AsyncWriter, Prefetcher
 from ..io.sites import group_sites_by_well, site_supp_folder
+from ..models.registry import is_vae_family
 from .dim_reduction import dim_reduction
 from .fused import seg_patch_fused
 from .patch import build_trajectories, extract_patches, instance_segmentation
@@ -105,7 +106,7 @@ def run_pipeline(raw_dir: str, supp_dir: str, sites: Sequence[str], config,
             "latent_encoding.streaming requested but stages are missing "
             "%s — running the fused front-end + staged assemble/process "
             "instead", sorted({"assemble", "process"} - set(stages)))
-    if streaming and "VAE" not in config.latent_encoding.network:
+    if streaming and not is_vae_family(config.latent_encoding.network):
         # the streaming encoder is VAE-family only (pipeline/stream.py)
         log.warning(
             "latent_encoding.streaming requested but network '%s' has no "

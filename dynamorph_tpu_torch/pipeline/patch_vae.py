@@ -30,7 +30,9 @@ from ..io.compact import (load_array_any, load_stack_any, save_array,
 from ..io.pickles import load_pickle, save_pickle
 from ..io.sites import site_supp_folder, well_of
 from ..models.jax_import import load_reference_checkpoint
-from ..models.registry import get_model_cls
+from ..models.registry import build_model, is_vae_family
+from ..models.resnet_simclr import EncodeProject
+from ..models.vae import VAEModel
 from ..track.relations import generate_trajectory_relations, patch_name_to_tuple
 from ..train.data import zscore_patch
 
@@ -299,19 +301,26 @@ def resolve_latent_weights(le):
 
 
 def _build_model_from_config(le, num_inputs: int = 2):
-    cls = get_model_cls(le.network)
+    """The configured VQ-VAE family network, built from the keywords it
+    takes (``models.registry.build_model``). The JAX package passes the
+    VQ-only ``num_embeddings`` and ``commitment_cost`` to every class, so
+    its ``process`` cannot build VAE, IWAE or AAE
+    (dynamorph_tpu/pipeline/patch_vae.py:194-203)."""
     # num_inputs/num_residual_layers hardcoded in the reference process path
     # (patch_VAE.py:426-429).
-    return cls(num_inputs=num_inputs,
-               num_hiddens=le.num_hiddens,
-               num_residual_hiddens=le.num_residual_hiddens,
-               num_residual_layers=2,
-               num_embeddings=le.num_embeddings,
-               commitment_cost=le.commitment_cost)
+    return build_model(le.network, num_inputs=num_inputs,
+                       num_hiddens=le.num_hiddens,
+                       num_residual_hiddens=le.num_residual_hiddens,
+                       num_residual_layers=2,
+                       num_embeddings=le.num_embeddings,
+                       commitment_cost=le.commitment_cost)
 
 
 def _load_model_weights(model, weights_path: str):
-    """Load a torch ``model.pt`` state_dict into ``model`` (strict)."""
+    """Load a torch ``model.pt`` state_dict into ``model`` (strict), for
+    any network: the port's modules carry the reference's names (the JAX
+    package imports a ``model.pt`` for the VQ-VAEs only,
+    dynamorph_tpu/pipeline/patch_vae.py:206-226)."""
     if os.path.isdir(weights_path):
         raise ValueError(
             f"{weights_path} is a directory without a model.pt; orbax "
@@ -337,9 +346,13 @@ def process_vae(raw_folder: str, supp_folder: str, sites: Sequence[str],
     """Encode a well's static patches to latent vectors
     (reference pipeline/patch_VAE.py:343-508), batched on ``device``.
 
-    Saves ``<well>_latent_space.pkl`` (pre-VQ) and
-    ``<well>_latent_space_after.pkl`` (post-VQ) under
-    ``<raw_folder>/<model_name>/``; with ``save_output`` also 20 recon JPEGs.
+    The VQ-VAE family (VQ_VAE_z16/z32, VAE, IWAE, AAE) z-scores each patch
+    on the device and saves ``<well>_latent_space.pkl`` (pre-VQ) and
+    ``<well>_latent_space_after.pkl`` (post-VQ; the VAE family's latent
+    twice) under ``<raw_folder>/<model_name>/``; with ``save_output`` also
+    20 recon JPEGs. A ResNet (``EncodeProject``) z-scores on the host, as
+    the JAX package does, and saves the projection ``z`` as
+    ``<well>_latent_space.pkl`` only.
 
     ``preloaded``: optional (fs, dataset) from ``load_well_inputs``.
     ``writer``: optional io.prefetch.AsyncWriter — saves submit to it
@@ -352,11 +365,7 @@ def process_vae(raw_folder: str, supp_folder: str, sites: Sequence[str],
         raise ValueError("Sites should be from a single well/condition")
     well = well_of(sites[0])
 
-    if "ResNet" in le.network:
-        raise NotImplementedError(
-            "the ResNet branch of process_vae comes with ROADMAP slice E "
-            "(other model families)")
-    if "VAE" not in le.network:
+    if not is_vae_family(le.network) and "ResNet" not in le.network:
         raise ValueError(f"Network {le.network} is not available")
 
     fs, dataset = preloaded if preloaded is not None \
@@ -374,6 +383,24 @@ def process_vae(raw_folder: str, supp_folder: str, sites: Sequence[str],
 
     output_dir = os.path.join(raw_folder, model_name)
     os.makedirs(output_dir, exist_ok=True)
+    storage = getattr(le, "storage", "pickle")
+    put = writer.submit if writer is not None \
+        else (lambda fn, *a, **kw: fn(*a, **kw))
+
+    if "ResNet" in le.network:
+        # the weights come from the path the JAX branch reads (a model.pt,
+        # or a directory holding one)
+        model = EncodeProject(arch=le.network)
+        _load_model_weights(model, probed_path)
+        model.to(dev)
+        dataset = zscore_patch(dataset).astype(np.float32)
+        with stage_timer("process_vae_encode", well=well, n=len(dataset)):
+            z = model.encode_batched(dataset, out="z", batch_size=batch_size)
+        put(save_array, z,
+            storage_path(os.path.join(output_dir,
+                                      f"{well}_latent_space.pkl"), storage),
+            storage=storage)
+        return {"output_dir": output_dir}
 
     model = _build_model_from_config(le, num_inputs=2)
     _load_model_weights(model, probed_path)
@@ -381,9 +408,6 @@ def process_vae(raw_folder: str, supp_folder: str, sites: Sequence[str],
     with stage_timer("process_vae_encode", well=well, n=len(dataset)):
         z_b, z_a = encode_patches(model, dataset, batch_size,
                                   normalize="patch", device=dev)
-    storage = getattr(le, "storage", "pickle")
-    put = writer.submit if writer is not None \
-        else (lambda fn, *a, **kw: fn(*a, **kw))
     put(save_array, z_b,
         storage_path(os.path.join(output_dir, f"{well}_latent_space.pkl"),
                      storage),
@@ -409,7 +433,9 @@ def recon_sample_indices(n_patches: int, n: int = 20) -> np.ndarray:
 def _save_recon_images(model, dataset, output_dir, n: int = 20,
                        device: Device = "cuda"):
     """``n`` random reconstruction JPEGs (reference patch_VAE.py:464-489),
-    of the patches ``recon_sample_indices`` picks.
+    of the patches ``recon_sample_indices`` picks. The VAE and IWAE decode
+    their mean latent (``predict``), so the images draw no noise (the
+    IWAE's ``apply`` returns no reconstruction).
 
     Object-oriented matplotlib (no pyplot globals) so it can run on an
     io.prefetch.AsyncWriter thread while the next well encodes."""
@@ -420,10 +446,12 @@ def _save_recon_images(model, dataset, output_dir, n: int = 20,
 
     dev = resolve_device(device)
     model.to(dev)
+    reconstruct = model.predict if isinstance(model, VAEModel) \
+        else model.apply
     for i in recon_sample_indices(len(dataset), n):
         # dataset arrives raw; per-patch z-score is local to each sample
         sample = zscore_patch(dataset[i: i + 1]).astype(np.float32)
-        output, _ = model.apply(torch.from_numpy(sample).to(dev))
+        output, _ = reconstruct(torch.from_numpy(sample).to(dev))
         output = output.cpu().numpy()
         ims = [im_adjust(sample[0, 0]), im_adjust(output[0, 0]),
                im_adjust(sample[0, 1]), im_adjust(output[0, 1])]

@@ -41,6 +41,7 @@ from ..io.compact import save_array, storage_path
 from ..io.pickles import load_pickle, save_pickle
 from ..io.prefetch import AsyncWriter
 from ..io.sites import group_sites_by_well, site_supp_folder
+from ..models.registry import is_vae_family
 from ..track.relations import generate_trajectory_relations
 from .fused import build_seg_model, seg_patch_fused
 from .patch_vae import (_build_model_from_config, _load_model_weights,
@@ -183,7 +184,7 @@ def seg_patch_stream(raw_folder: str, supp_folder: str,
     its latents are written.
     """
     le = config.latent_encoding
-    if "VAE" not in le.network:
+    if not is_vae_family(le.network):
         # the ResNet branch of process_vae normalises on the host and has
         # no streaming form (the orchestrator routes it to the staged path)
         raise ValueError(

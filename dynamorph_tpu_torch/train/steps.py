@@ -1,5 +1,5 @@
-"""Train and eval steps for the VQ-VAE family (the port of
-``dynamorph_tpu/train/steps.py``), on one device.
+"""Train and eval steps for the VQ-VAE family and the triplet path (the
+port of ``dynamorph_tpu/train/steps.py``), on one device.
 
 A step takes a batch already on the device, the uint8 relation block and the
 uint8 mask (4x fewer bytes to send than float32), casts both to float32 on
@@ -10,9 +10,15 @@ convolution is dispatched, so the block has to cover ``backward()`` too.
 
 On-device augmentation (random flip + rot90 per image, reference
 run_training.py:396-403) runs inside the train step.
+
+Models whose ``apply`` draws noise (VAE, IWAE: an ``apply`` that takes a
+``generator``) get the step's generator, after the augmentation has drawn
+from it; the JAX package decides the same by the signature (``needs_key``,
+dynamorph_tpu/train/trainer.py:157-166).
 """
 from __future__ import annotations
 
+import inspect
 from typing import Callable, Dict, Optional
 
 import torch
@@ -79,6 +85,14 @@ def _as_float(t, device) -> Optional[torch.Tensor]:
     return torch.as_tensor(t).to(device).to(torch.float32)
 
 
+def _noise_kwargs(model, generator) -> Dict:
+    """``{"generator": generator}`` for a model whose ``apply`` draws
+    noise, else nothing."""
+    if "generator" in inspect.signature(model.apply).parameters:
+        return {"generator": generator}
+    return {}
+
+
 def make_train_step(model, optimizer: torch.optim.Optimizer,
                     augment: bool = True,
                     generator: Optional[torch.Generator] = None
@@ -86,7 +100,9 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
     """``step(batch, rel, mask) -> losses`` (detached device scalars) for a
     model with ``apply(x, train, time_matching_mat, batch_mask)``. It updates
     the model's parameters (through ``optimizer``) and its batch-norm
-    buffers in place. ``generator`` draws the augmentation."""
+    buffers in place. ``generator`` draws the augmentation and the model's
+    noise."""
+    noise = _noise_kwargs(model, generator)
 
     def step(batch, rel=None, mask=None):
         rel = _as_float(rel, batch.device)
@@ -98,7 +114,7 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
         with fp32_strict():
             optimizer.zero_grad(set_to_none=True)
             _, losses = model.apply(batch, train=True, time_matching_mat=rel,
-                                    batch_mask=mask)
+                                    batch_mask=mask, **noise)
             losses["total_loss"].backward()
             optimizer.step()
         return {k: v.detach() for k, v in losses.items()}
@@ -106,15 +122,40 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
     return step
 
 
-def make_eval_step(model) -> Callable[..., Dict[str, torch.Tensor]]:
+def make_eval_step(model, generator: Optional[torch.Generator] = None
+                   ) -> Callable[..., Dict[str, torch.Tensor]]:
     """``step(batch, rel, mask) -> losses`` with the running batch-norm
-    statistics and no autograd."""
+    statistics and no autograd (``generator`` draws the model's noise)."""
+    noise = _noise_kwargs(model, generator)
 
     def step(batch, rel=None, mask=None):
         _, losses = model.apply(
             batch, train=False,
             time_matching_mat=_as_float(rel, batch.device),
-            batch_mask=_as_float(mask, batch.device))
+            batch_mask=_as_float(mask, batch.device), **noise)
         return losses
 
     return step
+
+
+def make_triplet_steps(model, optimizer: torch.optim.Optimizer):
+    """``(train_step, eval_step)`` for the triplet (ResNet/SimCLR) path,
+    each ``step(batch, labels) -> losses``: the reference's
+    ``train_with_loader`` inner loop (run_training.py:554-627;
+    dynamorph_tpu/train/steps.py:107-148). The train step runs the
+    forward, the miner, the backward and Adam inside ``fp32_strict``, and
+    updates the batch-norm buffers in place."""
+
+    def train_step(batch, labels):
+        with fp32_strict():
+            optimizer.zero_grad(set_to_none=True)
+            _, losses = model.apply(batch, labels=labels, train=True)
+            losses["total_loss"].backward()
+            optimizer.step()
+        return {k: v.detach() for k, v in losses.items()}
+
+    def eval_step(batch, labels):
+        _, losses = model.apply(batch, labels=labels, train=False)
+        return losses
+
+    return train_step, eval_step

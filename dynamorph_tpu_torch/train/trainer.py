@@ -1,6 +1,6 @@
-"""VQ-VAE training loop (the reference `train` entry, run_training.py:455-551),
-the port of ``dynamorph_tpu/train/trainer.py:31-412`` for one process and
-one device.
+"""VQ-VAE family training (the reference `train` entry, run_training.py:
+455-551) and triplet training (`train_with_loader`, :554-627): the port of
+``dynamorph_tpu/train/trainer.py`` for one process and one device.
 
 Batches stay trajectory-contiguous when a relation matrix is used
 (shuffle_data=False, reference run_training.py:471-472); the relation block
@@ -16,12 +16,13 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from ..core.device import resolve_device
+from ..core.device import resolve_device, upload
 from ..io.prefetch import Prefetcher
 from . import data as data_utils
 from .checkpoint import has_checkpoint, restore_checkpoint, save_checkpoint
 from .metrics import MetricsWriter
-from .steps import make_eval_step, make_train_step
+from .steps import make_eval_step, make_train_step, make_triplet_steps
+from .triplet_data import TripletDataset, triplet_batches
 
 # train_vqvae keeps the patch dataset (and the uint8 mask) on the device
 # across epochs up to this many bytes; above it, batches stream from the
@@ -77,7 +78,8 @@ def train_vqvae(model, dataset: np.ndarray, output_dir: str,
                 patience: Optional[int] = 20, seed: int = 0,
                 save_every_epoch: bool = False, resume: bool = False,
                 device: Union[str, torch.device] = "cuda"):
-    """Train a VQ-VAE family model in place. Returns (model, history).
+    """Train a VQ-VAE family model (VQ-VAE z16/z32, VAE, IWAE, AAE) in
+    place. Returns (model, history).
 
     ``model`` starts from the weights it holds. The best epoch's weights go
     to ``<output_dir>/model.pt`` (reference names) with the optimizer state
@@ -89,7 +91,10 @@ def train_vqvae(model, dataset: np.ndarray, output_dir: str,
     0.999, eps 1e-8; the update of ``optax.adam``), per-epoch train/val loss
     averaging, TensorBoard scalars and ``metrics.jsonl``, early stopping on
     the val loss. ``device`` is the card unless the caller passes "cpu";
-    without a card the call raises.
+    without a card the call raises. One ``torch.Generator`` on the device,
+    seeded with ``seed``, draws the augmentation and the VAE and IWAE
+    noise. The AAE trains through ``apply`` with no adversarial term, as
+    in the JAX package.
     """
     if val_split_ratio is not None and not 0 < val_split_ratio < 1:
         raise ValueError(f"val_split_ratio {val_split_ratio} not in (0, 1)")
@@ -109,7 +114,7 @@ def train_vqvae(model, dataset: np.ndarray, output_dir: str,
         print(f"Resuming from {output_dir} at epoch {start_epoch}")
     train_step = make_train_step(model, optimizer, augment=transform,
                                  generator=generator)
-    eval_step = make_eval_step(model)
+    eval_step = make_eval_step(model, generator=generator)
 
     train_ids, val_ids = data_utils.split_data_ids(
         len(dataset), val_split_ratio, shuffle_data, rng)
@@ -194,5 +199,90 @@ def train_vqvae(model, dataset: np.ndarray, output_dir: str,
         if shuffle_data and epoch < n_epochs - 1:
             # reshuffle for the NEXT epoch only, after the early-stop check
             rng.shuffle(train_ids)
+    writer.close()
+    return model, history
+
+
+def train_triplet(model, train_set: TripletDataset, val_set: TripletDataset,
+                  output_dir: str, n_epochs: int = 10, lr: float = 1e-3,
+                  batch_size: int = 192, patience: Optional[int] = 20,
+                  earlystop_metric: str = "positive_triplet",
+                  retrain: bool = False, log_step_offset: int = 0,
+                  seed: int = 0, device: Union[str, torch.device] = "cuda"):
+    """Triplet-loss training with positive-set sampling (the reference
+    ``train_with_loader``, run_training.py:554-627;
+    dynamorph_tpu/train/trainer.py:415-559). Returns (model, history).
+
+    ``batch_size`` counts anchors: each yields ``n_sample`` patches
+    (``train/triplet_data.py``), and the flattened batch runs through one
+    forward, miner, backward and Adam step. The epochs run from
+    ``log_step_offset`` to ``n_epochs``; the train split is shuffled with
+    ``np.random.RandomState(seed)``, and the datasets draw their own
+    augmentation and positives. A ``model.pt`` already in ``output_dir``
+    is loaded first (strict) unless ``retrain``. Early stopping monitors
+    the val ``earlystop_metric`` (the train one without val batches, and
+    ``total_loss`` where the metric is missing, as for the hard-negative
+    miner), and each improvement writes ``<output_dir>/model.pt``.
+    Each batch is built on the host while the device runs the previous
+    step; loss sums stay on the device until the epoch ends.
+    """
+    dev = resolve_device(device)
+    os.makedirs(output_dir, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    model.to(dev)
+    if has_checkpoint(output_dir) and not retrain:
+        print(f"Found previously saved model state {output_dir}. "
+              "Continue training...")
+        restore_checkpoint(output_dir, model)
+    optimizer = torch.optim.Adam(model.parameters(), lr=lr,
+                                 betas=(0.9, 0.999), eps=1e-8)
+    train_step, eval_step = make_triplet_steps(model, optimizer)
+
+    writer = MetricsWriter(output_dir)
+    early = EarlyStopping(patience=patience or 10 ** 9, path=output_dir,
+                          verbose=True)
+    history = []
+    warned_fallback = False
+    for epoch in range(log_step_offset, n_epochs):
+        means = {}
+        for training, dataset in ((True, train_set), (False, val_set)):
+            step = train_step if training else eval_step
+            totals, count = None, 0
+            for labels, data in triplet_batches(dataset, batch_size,
+                                                shuffle=training, rng=rng):
+                losses = step(upload(np.asarray(data, np.float32), dev),
+                              upload(np.asarray(labels), dev))
+                totals = losses if totals is None else \
+                    {k: totals[k] + v for k, v in losses.items()}
+                count += 1
+            if totals is not None:
+                keys = sorted(totals)
+                sums = torch.stack([totals[k] for k in keys]).cpu().tolist()
+                totals = {k: v / count for k, v in zip(keys, sums)}
+            means[training] = totals or {}
+        train_losses, val_losses = means[True], means[False]
+        writer.write("Loss", train_losses, epoch)
+        writer.write("Val loss", val_losses, epoch)
+        history.append({"epoch": epoch, "train": train_losses,
+                        "val": val_losses})
+        if not train_losses:
+            raise ValueError(
+                f"no training batches ran: the dataset ({len(train_set)} "
+                f"anchors) must cover at least one batch of {batch_size} "
+                "anchors")
+        monitored = val_losses or train_losses
+        metric = earlystop_metric if earlystop_metric in monitored \
+            else "total_loss"
+        if (not val_losses or metric != earlystop_metric) \
+                and not warned_fallback:
+            warnings.warn(
+                f"early stopping monitors "
+                f"{'val' if val_losses else 'TRAIN'} '{metric}' "
+                f"(requested '{earlystop_metric}')")
+            warned_fallback = True
+        early(monitored[metric], model)
+        if early.early_stop:
+            print("Early stopping")
+            break
     writer.close()
     return model, history

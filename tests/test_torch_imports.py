@@ -42,8 +42,17 @@ import chip_smoke
 assert sys.modules["jax"] is None
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("sklearn", "cv2", "matplotlib")]
+print(" ".join(names))
 print(len(names))
 """
+
+# modules that each slice added, which the blocked import must reach (the
+# AST scans below take every file of the package)
+_SLICE_MODULES = [
+    "dynamorph_tpu_torch.models.vae", "dynamorph_tpu_torch.models.losses",
+    "dynamorph_tpu_torch.models.resnet_simclr",
+    "dynamorph_tpu_torch.train.triplet_data",
+]
 
 
 def _is_forbidden(module: str) -> bool:
@@ -55,13 +64,21 @@ def _sources():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
+def test_scans_cover_the_slice_modules():
+    scanned = {str(p.relative_to(ROOT))[:-3].replace("/", ".")
+               for p in _sources()}
+    assert set(_SLICE_MODULES) <= scanned
+
+
 def test_port_imports_with_jax_and_jax_package_blocked():
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     res = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
-    assert int(res.stdout.strip().splitlines()[-1]) >= 30
+    names, count = res.stdout.strip().splitlines()[-2:]
+    assert int(count) >= 30
+    assert set(_SLICE_MODULES) <= set(names.split())
 
 
 @pytest.mark.parametrize("path", _sources(),
