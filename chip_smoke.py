@@ -44,8 +44,11 @@ passed prints the final ``{"ok": true, ...}`` line:
 6. one training step on the card against the same step on the CPU (same
    weights, 8 full-width patches, a mask and a relation block, no
    augmentation): losses, gradients and batch-norm buffers. This is the
-   check that sees TF32 in the backward pass; a control step whose
-   backward runs outside ``fp32_strict`` shows what TF32 would look like;
+   check that sees TF32 in the backward pass. Each fp32 step's gradients
+   are held against float64 taken on that step's side of every kink (its
+   ReLU masks and the time-matching loss's clamps replayed, the flips
+   counted): the card's error at most 3 x the CPU's + 1e-5; a control
+   step whose backward runs with TF32 on must land over that limit;
 7. timings with CUDA events: each kernel at its main-path shapes beside its
    bound, its plain version and the stock-PyTorch yardstick (and the
    lookup beside its row-wise oracle), as device time (calls replayed from
@@ -138,14 +141,40 @@ passed prints the final ``{"ok": true, ...}`` line:
    ResNet50 the 128-d projection as ``_latent_space.pkl`` only). For each
    network: no VQ kernel launched; the first 64 patches' latents card vs
    CPU within 1e-5 of max |z| beside a TF32 control; one train step of
-   seeded weights on 8 patches card vs CPU, losses and gradients held
-   against float64 as in phase 6 (with a wider factor), beside a control
-   step run with TF32 on; the encode rate on a
+   seeded and of trained weights on 8 patches card vs CPU, losses and
+   gradients held against float64 at phase 6's rule (each float64 step
+   on its fp32 step's side of every kink), beside a control step run
+   with TF32 on; the encode rate on a
    device-resident batch of 512 and end to end; the train step at batch
    768 on a device-resident batch (ms, peak memory, device time by kernel
    family, torch.profiler); for ResNet50 the all-triplet miner's forward +
    backward alone at B = 768 (ms, share of the step, its peak memory).
+   Then a ResNet18 step with the hard-negative miner, on seeded and on
+   default weights, held the same way (its two maxima and its clamp
+   replayed in float64 with the ReLUs and the max-pool).
    This path reaches no Pallas kernel (no codebook).
+13. after the latents, on earlier phases' artifacts: ``train_adversarial``
+   (the AAE at the z16 widths on phase 12's 1,536 training patches, batch
+   768, one epoch: 2 steps of 3 updates), whose ``model_epoch0/model.pt``
+   ``run_vae -m process`` then loads strict; the adversarial step timed
+   at batch 768 (ms, idle share, peak memory); one step on 8 patches from
+   the trained weights, each update held card vs CPU against
+   float64 at phase 12's rule with a TF32 control, the discriminator
+   update leaving enc and dec and the generator update leaving enc_d
+   unmoved; ``evaluate_recon_losses`` of phase 4's VQ_VAE_z16 on phase 4's
+   well (9 vq_lookup launches) and card vs CPU on a 256-sample subset
+   (1e-5 relative where the codes agree, flips at float64 near-ties);
+   ``fit_cpca`` on phase 10's plate (55,296 x 4,096: the first half the
+   target, the second the background, ``auto_alphas``, k = 2), its
+   covariances against float64 on the host (1e-10) and its components
+   against ``numpy.linalg.eigh`` in float64 (|cos| >= 1 - 1e-4 where the
+   eigengap is at least 1e-3 of max |w|, the Rayleigh quotient elsewhere);
+   ``kmeans_on_short_trajs`` (raw and diffs) on the plate's PCs in
+   trajectories of 8 and ``movement_state_clustering`` on as many
+   synthetic tracks, card vs CPU (labels equal but at float64 near-ties);
+   ``msd_curve``, ``fit_msd_powerlaw``, ``trajectory_summaries`` ->
+   ``well_conditioned_gmm`` and ``pc_sample_montage`` along PC1. This path
+   reaches vq_lookup through the VQ-VAE's eval ``apply``.
    Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and the
    ``{"ok": true, ...}`` line.
 """
@@ -728,7 +757,11 @@ def phase_step_vs_cpu(torch, dev):
     card and on the CPU. The card's codebook indices are replayed into the
     CPU step, so both differentiate the same assignment; where the CPU's
     own search disagrees, it must be at a near-tie widened by the latents'
-    own difference."""
+    own difference. Each fp32 step's gradients are held against the same
+    step in float64 taken on that fp32 step's side of every kink
+    (``kink_branches``: the ReLUs and the time-matching loss's clamps), as
+    phase 12 holds its steps, and a control step with its backward in
+    TF32 must land over the limit."""
     phase("6. one training step, card vs CPU (VQ_VAE_z32, full width)")
     from dynamorph_tpu_torch.models import VQVAEz32
     from dynamorph_tpu_torch.models import vqvae as vqvae_mod
@@ -757,14 +790,17 @@ def phase_step_vs_cpu(torch, dev):
     def replaying_f64(z, cb, precision="highest"):
         return seen["idx"].to(z.device)
 
-    def run(device, search, dtype=torch.float32):
+    def run(device, search, dtype=torch.float32, masks=None, replay=False):
         model = copy.deepcopy(base).to(device=device, dtype=dtype)
         step = make_train_step(model, torch.optim.Adam(
             model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8),
             augment=False)
         vqvae_mod.vq_indices = search
         try:
-            losses = step(torch.from_numpy(x).to(device, dtype), rel, mask)
+            with kink_branches(torch, masks, replay) if masks is not None \
+                    else contextlib.nullcontext():
+                losses = step(torch.from_numpy(x).to(device, dtype), rel,
+                              mask)
         finally:
             vqvae_mod.vq_indices = real
         grads = {n: p.grad.detach().cpu().double() for n, p in
@@ -773,9 +809,22 @@ def phase_step_vs_cpu(torch, dev):
                 if "running" in n}
         return {k: float(v.detach()) for k, v in losses.items()}, grads, bufs
 
-    l_gpu, g_gpu, b_gpu = run(dev, recording)
-    l_cpu, g_cpu, b_cpu = run("cpu", replaying)
-    _, g_f64, _ = run("cpu", replaying_f64, torch.float64)
+    m_gpu, m_cpu, m_f64 = [], [], []
+    l_gpu, g_gpu, b_gpu = run(dev, recording, masks=m_gpu)
+    l_cpu, g_cpu, b_cpu = run("cpu", replaying, masks=m_cpu)
+    run("cpu", replaying_f64, torch.float64, masks=m_f64)
+    _, g_f64, _ = run("cpu", replaying_f64, torch.float64, masks=m_gpu,
+                      replay=True)
+    _, g_f64c, _ = run("cpu", replaying_f64, torch.float64, masks=m_cpu,
+                       replay=True)
+
+    def kink_flips(masks):
+        return sum(int((a != b).sum()) for a, b in zip(masks, m_f64))
+
+    n_choices = sum(int(m.numel()) for m in m_f64)
+    log(f"kink choices (ReLU masks, clamps) against float64's own: card "
+        f"{kink_flips(m_gpu)}, CPU {kink_flips(m_cpu)} of {n_choices} "
+        "flipped; each float64 step below takes its fp32 step's choices")
 
     d = TRAIN_NET["num_hiddens"]
     idx_g, idx_c = seen["idx"].cpu().reshape(-1), seen["cpu_idx"].reshape(-1)
@@ -805,10 +854,10 @@ def phase_step_vs_cpu(torch, dev):
     zero = pre_bn_biases(base)
     weights = [n for n in g_cpu if n.endswith(".weight")]
 
-    def vs_f64(grads):
-        return {n: rel_l2(grads[n], g_f64[n]) for n in weights}
+    def vs_f64(grads, ref=g_f64):
+        return {n: rel_l2(grads[n], ref[n]) for n in weights}
 
-    e_gpu, e_cpu = vs_f64(g_gpu), vs_f64(g_cpu)
+    e_gpu, e_cpu = vs_f64(g_gpu), vs_f64(g_cpu, g_f64c)
     direct = {n: rel_l2(g_gpu[n], g_cpu[n]) for n in weights}
     ratio = {n: e_gpu[n] / (STEP_GRAD_VS_CPU * e_cpu[n] + STEP_GRAD_FLOOR)
              for n in weights}
@@ -833,33 +882,43 @@ def phase_step_vs_cpu(torch, dev):
         raise AssertionError("batch-norm buffers differ")
 
     # control: the same forward (fp32_strict inside apply), but backward()
-    # after the block has closed, with cuDNN's TF32 default: what the
-    # gradient check would see if the train step left its backward out
+    # after the block has closed, with TF32 on: what the gradient check
+    # would see if the train step left its backward out. Its forward is the
+    # card's, so it is held against float64 on the card's side of every kink
     model = copy.deepcopy(base).to(dev)
+    tf32 = torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
     vqvae_mod.vq_indices = lambda z, cb, precision="highest": seen["idx"]
     try:
         _, losses = model.apply(
             torch.from_numpy(x).to(dev), train=True, time_matching_mat=rel,
             batch_mask=torch.from_numpy(mask).to(dev).float())
+        losses["total_loss"].backward()
     finally:
         vqvae_mod.vq_indices = real
-    tf32 = torch.backends.cudnn.allow_tf32
-    losses["total_loss"].backward()
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
     g_ctrl = {n: p.grad.detach().cpu().double()
               for n, p in model.named_parameters()}
     e_ctrl = vs_f64(g_ctrl)
     ctrl = {n: e_ctrl[n] / (STEP_GRAD_VS_CPU * e_cpu[n] + STEP_GRAD_FLOOR)
             for n in weights}
     ctrl_worst = max(ctrl, key=ctrl.get)
-    log(f"control, backward outside fp32_strict (cudnn.allow_tf32={tf32}): "
-        f"vs float64 enc.0.weight {e_ctrl['enc.0.weight']:.3e}, "
-        f"dec.4.weight {e_ctrl['dec.4.weight']:.3e}; worst {ctrl_worst} at "
-        f"{ctrl[ctrl_worst]:.3f} of the limit (the check would "
-        f"{'catch' if ctrl[ctrl_worst] > 1 else 'miss'} it)")
+    log(f"control, backward outside fp32_strict with TF32 on: vs float64 "
+        f"enc.0.weight {e_ctrl['enc.0.weight']:.3e}, dec.4.weight "
+        f"{e_ctrl['dec.4.weight']:.3e}; worst {ctrl_worst} at "
+        f"{ctrl[ctrl_worst]:.3f} of the limit")
+    if not ctrl[ctrl_worst] > 1:
+        raise AssertionError(f"the TF32 control step lands at "
+                             f"{ctrl[ctrl_worst]:.3f} of the limit: the "
+                             "check cannot see TF32 in the backward")
     return dict(loss_rel=worst_loss, grad_ratio=ratio[worst],
                 grad_vs_f64=e_gpu[worst], grad_cpu_vs_f64=e_cpu[worst],
                 bn_abs=bn_err, flips=len(flips), control=ctrl[ctrl_worst],
-                tf32_default=tf32)
+                kink_flips_card=kink_flips(m_gpu),
+                kink_flips_cpu=kink_flips(m_cpu), kink_choices=n_choices)
 
 
 # ---------------------------------------------------------------- phase 7
@@ -2962,12 +3021,12 @@ def e1_training_config(root, raw, network):
     return cfg, os.path.join(root, "e1_out", network)
 
 
-def e1_model(network):
+def e1_model(network, hard_negative=False):
     from dynamorph_tpu_torch.models import build_model
     from dynamorph_tpu_torch.models.resnet_simclr import EncodeProject
 
     if network.startswith("ResNet"):
-        return EncodeProject(arch=network)
+        return EncodeProject(arch=network, hard_negative=hard_negative)
     return build_model(network, num_inputs=2, **NET)
 
 
@@ -2999,16 +3058,22 @@ def e1_tf32_forward(torch, model, x):
 
 @contextlib.contextmanager
 def kink_branches(torch, masks, replay):
-    """Inside the block every kink of these models' train steps, ``F.relu``
-    (each ReLU of the networks), ``Tensor.relu_`` (the all-triplet miner's
-    hinge) and ``F.max_pool2d`` (the ResNet stem's max-pool), appends its
-    choice to ``masks`` in call order (a mask ``x > 0``, or the pool's
-    argmax); with ``replay`` it takes the recorded choice instead, so a
-    float64 step follows an fp32 step's branches. A replayed active hinge
-    passes ``x`` with gradient 1, at least 2e-16, so that the miner counts
-    it as the fp32 step did."""
+    """Inside the block every kink of these models' train steps appends its
+    choice to ``masks`` in call order; with ``replay`` it takes the
+    recorded choice instead, so a float64 step follows an fp32 step's
+    branches. The kinks: ``F.relu`` (each ReLU of the networks; its mask
+    ``x > 0``), ``Tensor.relu_`` (the all-triplet miner's hinge),
+    ``F.max_pool2d`` (the ResNet stem's max-pool; its argmax), ``torch.max``
+    over a ``dim`` (the hard-negative miner's hardest positive and row
+    maximum, the IWAE's largest log-weight; its argmax) and ``torch.clamp``
+    with a ``min`` alone (the miners' distance clamp, the hard-negative
+    hinge, the time-matching loss's distance and hinge; its active mask
+    ``x >= min``, where its gradient is 1). A replayed active hinge passes
+    ``x`` with gradient 1, at least 2e-16, so that the miner counts it as
+    the fp32 step did. The patches leave the models' arithmetic as it is."""
     F = torch.nn.functional
     relu, relu_, max_pool = F.relu, torch.Tensor.relu_, F.max_pool2d
+    tmax, tclamp = torch.max, torch.clamp
     queue = iter(masks)
 
     def branch(x, inplace=False):
@@ -3033,11 +3098,37 @@ def kink_branches(torch, masks, replay):
         masks.append(idx.cpu())
         return y
 
+    def max_(x, *args, **kwargs):
+        dim = args[0] if args and isinstance(args[0], int) \
+            else kwargs.get("dim")
+        if dim is None:
+            return tmax(x, *args, **kwargs)
+        keepdim = args[1] if len(args) > 1 else kwargs.get("keepdim", False)
+        if not replay:
+            out = tmax(x, dim, keepdim=keepdim)
+            masks.append(out.indices.cpu())
+            return out
+        idx = next(queue).to(x.device)
+        values = x.gather(dim, idx if keepdim else idx.unsqueeze(dim))
+        return torch.return_types.max(
+            (values if keepdim else values.squeeze(dim), idx))
+
+    def clamp(x, *args, **kwargs):
+        if args or set(kwargs) != {"min"}:
+            return tclamp(x, *args, **kwargs)
+        lo = kwargs["min"]
+        if replay:
+            return torch.where(next(queue).to(x.device), x, lo)
+        masks.append((x >= lo).cpu())
+        return tclamp(x, min=lo)
+
     F.relu, torch.Tensor.relu_, F.max_pool2d = branch, hinge, pool
+    torch.max, torch.clamp = max_, clamp
     try:
         yield
     finally:
         F.relu, torch.Tensor.relu_, F.max_pool2d = relu, relu_, max_pool
+        torch.max, torch.clamp = tmax, tclamp
 
 
 def e1_step_grads(torch, model, network, x, noise, labels, fp32=True,
@@ -3083,13 +3174,13 @@ def e1_step_grads(torch, model, network, x, noise, labels, fp32=True,
             None if z is None else z.detach().cpu().double())
 
 
-def e1_seeded_model(torch, network):
+def e1_seeded_model(torch, network, hard_negative=False):
     """The network with seeded weights, batch norm moved off the
     identity."""
     from torch import nn
 
     torch.manual_seed(SEED + 12)
-    model = e1_model(network)
+    model = e1_model(network, hard_negative)
     g = torch.Generator().manual_seed(SEED + 12)
     with torch.no_grad():
         for m in model.modules():
@@ -3424,8 +3515,618 @@ def phase_other_encoders(torch, vq, root, dev, card, well):
         r["timing"] = e1_step_timing(torch, network, fresh.to(dev), dev, tag)
         del model, fresh, cpu, card_model, xb, xz
         torch.cuda.empty_cache()
+    # the hard-negative miner, beside the all-triplet steps above: ResNet18
+    # on seeded and on PyTorch's default weights, its two maxima and its
+    # clamp replayed in float64 with the ReLUs and the max-pool
+    torch.manual_seed(SEED + 14)
+    hard = {w: e1_step_vs_cpu(torch, "ResNet18", m, train_data, dev, tag,
+                              f"{w}, hard-negative miner")
+            for w, m in (("seeded", e1_seeded_model(torch, "ResNet18", True)),
+                         ("default", e1_model("ResNet18", True)))}
     log(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
-    return runs
+    return runs, hard
+
+
+# ---------------------------------------------------------------- phase 13
+#
+# After the latents, on earlier phases' artifacts: the AAE's adversarial
+# training on phase 12's training set (z16 widths, batch 768 of
+# configs/config_example.yml:101, one epoch of 1,536 patches: 2 steps of 3
+# updates, cut from up to 5,000 epochs), the reconstruction eval of phase
+# 4's VQ_VAE_z16 on phase 4's well, contrastive PCA on phase 10's plate
+# latents (55,296 x 4,096; the first half the target, the second the
+# background; auto_alphas, k = 2), and state clustering and trajectory
+# dynamics on the plate grouped into trajectories of TRAJ_LEN.
+
+ADV_CHECK = 8               # patches of the card-vs-CPU adversarial step
+RECON_SUBSET = 256          # card-vs-CPU subset of the reconstruction eval
+RECON_RTOL = 1e-5           # per-sample losses card vs CPU
+CPCA_K = 2
+# covariances, card float64 vs host float64 (relative Frobenius)
+CPCA_COV_RTOL = 1e-10
+# an fp32 eigenvector is held (|cos| >= 1 - CPCA_COS_TOL to float64) where
+# its float64 eigengap is at least CPCA_GAP_REL of the largest |w|; inside
+# a closer cluster any basis is an answer, and its Rayleigh quotient is
+# held within CPCA_RAYLEIGH_REL of the largest |w| instead
+CPCA_GAP_REL = 1e-3
+CPCA_COS_TOL = 1e-4
+CPCA_RAYLEIGH_REL = 1e-5
+STATE_LEN = 5
+STATE_CLUSTERS = 4
+MOVE_SCALES = (0.05, 1.0, 8.0)   # px a frame of the synthetic tracks
+
+
+def adv_stage_grads(torch, model, stage, x, rel, noise, fp32=True,
+                    masks=None, replay=False):
+    """One adversarial update's train-mode forward and backward (no
+    optimizer step): (losses, {weight: gradient as float64 on the host}).
+    ``fp32=False`` is the TF32 control (the model's ``fp32_strict`` made a
+    no-op, TF32 on); ``masks`` records or replays the kinks."""
+    from dynamorph_tpu_torch.core.device import fp32_strict
+    from dynamorph_tpu_torch.models import vae
+    from dynamorph_tpu_torch.train.adversarial import stage_loss
+
+    saved = vae.fp32_strict
+    tf32 = torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32
+    if not fp32:
+        vae.fp32_strict = contextlib.nullcontext
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with fp32_strict() if fp32 else contextlib.nullcontext(), \
+                kink_branches(torch, masks, replay) if masks is not None \
+                else contextlib.nullcontext():
+            loss, losses = stage_loss(model, stage, x, rel, None, None, noise)
+            loss.backward()
+    finally:
+        vae.fp32_strict = saved
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    grads = {n: p.grad.detach().cpu().double()
+             for n, p in model.named_parameters()
+             if p.grad is not None and n.endswith(".weight")}
+    return {k: float(v.detach()) for k, v in losses.items()}, grads
+
+
+def adv_step_vs_cpu(torch, base, data, dev, tag):
+    """One adversarial step of ``base`` on the card on ADV_CHECK patches,
+    the prior samples and dropout masks drawn once on the CPU and fed in.
+    Each update is then run again from the parameters the card's step gave
+    it, on the CPU in fp32 and in float64 on each fp32 run's side of every
+    kink, and held at phase 12's rule, beside a TF32 control that must land
+    over it. Also: the discriminator update leaves enc and dec as they were,
+    the generator update enc_d."""
+    from dynamorph_tpu_torch.train.adversarial import (
+        STAGES, make_adversarial_step, make_optimizers)
+    from dynamorph_tpu_torch.train.data import zscore
+
+    x = torch.from_numpy(zscore(data[:ADV_CHECK]).astype(np.float32))
+    rel = torch.from_numpy(relation_block(ADV_CHECK, 4)).float()
+    nh = NET["num_hiddens"]
+    g = torch.Generator().manual_seed(SEED + 13)
+    noise = {s: {"z_prior": torch.randn(ADV_CHECK, nh, 16, 16, generator=g),
+                 "keep": [torch.rand(ADV_CHECK, w, generator=g) < 0.75
+                          for w in (8 * nh, nh, 8 * nh, nh)]}
+             for s in ("dis", "gen")}
+    model = copy.deepcopy(base).to(dev)
+    masks, ends, pre, card = [], [], {}, {}
+
+    def on_grads(stage, m):
+        ends.append(len(masks))
+        pre[stage] = copy.deepcopy(m.state_dict())
+        card[stage] = {n: p.grad.detach().cpu().double()
+                       for n, p in m.named_parameters()
+                       if p.grad is not None and n.endswith(".weight")}
+
+    opts = make_optimizers(model)
+    for s, opt in opts.items():     # after each backward, before its update
+        opt.register_step_pre_hook(
+            lambda _o, _a, _k, s=s: on_grads(s, model))
+    step = make_adversarial_step(model, opts, augment=False)
+    with kink_branches(torch, masks, False):
+        l_card = step(x.to(dev), rel.to(dev), noise={
+            s: {"z_prior": v["z_prior"].to(dev),
+                "keep": [k.to(dev) for k in v["keep"]]}
+            for s, v in noise.items()})
+    after = {n: p.detach() for n, p in model.named_parameters()}
+    for stage, nxt, fixed in (("dis", pre["gen"], ("enc.", "dec.")),
+                              ("gen", after, ("enc_d.",))):
+        moved = [n for n, p in pre[stage].items() if n.startswith(fixed)
+                 and n in after and not torch.equal(p, nxt[n])]
+        if moved:
+            raise AssertionError(f"the {stage} update moved {moved[:3]}")
+
+    def rel_l2(a, b):
+        return float(torch.norm(a - b) / max(float(torch.norm(b)), 1e-30))
+
+    out = {}
+    starts = [0] + ends[:-1]
+    for stage, a, b in zip(STAGES, starts, ends):
+        m_card = masks[a:b]
+
+        def run(device, dtype, fp32=True, m=None, replay=False):
+            mod = copy.deepcopy(base).to(device=device, dtype=dtype)
+            mod.load_state_dict(pre[stage])
+            nz = None if stage == "recon" else {
+                "z_prior": noise[stage]["z_prior"].to(device, dtype),
+                "keep": [k.to(device) for k in noise[stage]["keep"]]}
+            return adv_stage_grads(torch, mod, stage, x.to(device, dtype),
+                                   rel.to(device, dtype), nz, fp32, m, replay)
+
+        m_cpu, m_f64 = [], []
+        l_cpu, g_cpu = run("cpu", torch.float32, m=m_cpu)
+        run("cpu", torch.float64, m=m_f64)
+        _, g_f64 = run("cpu", torch.float64, m=m_card, replay=True)
+        _, g_f64c = run("cpu", torch.float64, m=m_cpu, replay=True)
+        _, g_ctrl = run(dev, torch.float32, fp32=False)
+        # the step returns the recon and discriminator forwards' losses
+        # (as the JAX step does); the generator forward is held by its
+        # gradients alone
+        loss_err = 0.0 if stage == "gen" else max(
+            abs(float(l_card[k]) - v) / max(abs(v), 1e-6)
+            for k, v in l_cpu.items())
+        e_cpu = {n: rel_l2(g_cpu[n], g_f64c[n]) for n in g_f64}
+
+        def ratio(grads):
+            r = {n: rel_l2(grads[n], g_f64[n]) / (
+                E1_GRAD_VS_CPU * e_cpu[n] + E1_GRAD_FLOOR) for n in g_f64}
+            worst = max(r, key=r.get)
+            return r[worst], worst
+
+        grad_ratio, worst = ratio(card[stage])
+        ctrl_ratio, ctrl_worst = ratio(g_ctrl)
+        flips = [sum(int((p != q).sum()) for p, q in zip(m, m_f64))
+                 for m in (m_card, m_cpu)]
+        log(f"  AAE {stage} update on {ADV_CHECK} patches, card vs CPU from "
+            f"the card step's parameters: kink choices against float64's "
+            f"own: card {flips[0]}, CPU {flips[1]} of "
+            f"{sum(int(m.numel()) for m in m_f64)} flipped; losses "
+            f"{loss_err:.3e} relative (rtol {STEP_LOSS_RTOL:g}); gradients "
+            f"of {len(g_f64)} weights vs float64: worst {worst} at "
+            f"{grad_ratio:.3f} of the limit (card "
+            f"{rel_l2(card[stage][worst], g_f64[worst]):.3e}, CPU "
+            f"{e_cpu[worst]:.3e}); TF32 control: {ctrl_worst} at "
+            f"{ctrl_ratio:.3f} of the limit{tag}")
+        if loss_err > STEP_LOSS_RTOL:
+            raise AssertionError(f"AAE {stage} update: losses card vs CPU "
+                                 f"{loss_err:.3e}")
+        if grad_ratio > 1:
+            raise AssertionError(f"AAE {stage} update: gradient {worst} at "
+                                 f"{grad_ratio:.3f} of its limit")
+        if not ctrl_ratio > 1:
+            raise AssertionError(f"AAE {stage} update: the TF32 control "
+                                 f"lands at {ctrl_ratio:.3f} of the limit: "
+                                 "the check cannot see TF32")
+        out[stage] = dict(loss_rel=loss_err, grad_ratio=grad_ratio,
+                          control=ctrl_ratio, flips_card=flips[0],
+                          flips_cpu=flips[1])
+    return out
+
+
+def phase_adversarial(torch, vq, root, dev, tag):
+    """train_adversarial on phase 12's training set, process on its
+    checkpoint, the step timed, and the step checks."""
+    from dynamorph_tpu_torch.cli import run_vae
+    from dynamorph_tpu_torch.io.pickles import load_pickle
+    from dynamorph_tpu_torch.models.jax_import import (
+        load_reference_checkpoint)
+    from dynamorph_tpu_torch.train import data as data_utils
+    from dynamorph_tpu_torch.train.adversarial import (
+        make_adversarial_step, make_optimizers, train_adversarial)
+
+    raw = os.path.join(root, "e1_train_raw")
+    dataset = data_utils.zscore(np.squeeze(load_pickle(
+        os.path.join(raw, "im_static_patches.pkl")))).astype(np.float32)
+    relations, _ = data_utils.concat_relations(
+        [load_pickle(os.path.join(raw, "im_static_patches_relations.pkl"))],
+        [load_pickle(os.path.join(raw, "im_static_patches_labels.pkl"))],
+        offsets=[0])
+    dataset, relation_mat, _ = data_utils.reorder_with_trajectories(
+        dataset, relations, seed=123)
+    torch.manual_seed(SEED + 13)
+    model = e1_model("AAE")
+    out = os.path.join(root, "adv_out")
+    steps = -(-len(dataset) // TRAIN_BATCH)
+    t0 = time.perf_counter()
+    _, hist = train_adversarial(model, dataset, out,
+                                relation_mat=relation_mat, n_epochs=1,
+                                batch_size=TRAIN_BATCH, transform=True,
+                                seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    keys = {"epoch", "recon_loss", "time_matching_loss", "total_loss",
+            "perplexity", "generator_loss", "descriminator_loss", "score"}
+    if len(hist) != 1 or set(hist[0]) != keys or \
+            not all(np.isfinite(v) for v in hist[0].values()):
+        raise AssertionError(f"train_adversarial history {hist}")
+    ckpt = os.path.join(out, "model_epoch0")
+    fresh = e1_model("AAE")
+    fresh.load_state_dict(load_reference_checkpoint(
+        os.path.join(ckpt, "model.pt")), strict=True)
+    log(f"train_adversarial AAE: {wall:.3f} s wall for one epoch of "
+        f"{len(dataset)} patches ({steps} steps of 3 updates at batch "
+        f"{TRAIN_BATCH}, host batching included); "
+        + json.dumps({k: round(v, 6) for k, v in hist[0].items()})
+        + f"; model_epoch0/model.pt loads strict{tag}")
+
+    # process on that checkpoint (loaded strict by run_vae), phase 4's well
+    pcfg = os.path.join(root, "adv_process.yml")
+    with open(pcfg, "w") as f:
+        f.write("latent_encoding:\n"
+                f"  raw_dirs: ['{os.path.join(root, 'raw')}']\n"
+                f"  supp_dirs: ['{os.path.join(root, 'supp')}']\n"
+                f"  weights: ['{ckpt}']\n"
+                "  fov: ['C5-Site_0', 'C5-Site_1']\n"
+                "  save_output: False\n  network: 'AAE'\n"
+                f"  num_hiddens: {NET['num_hiddens']}\n"
+                f"  num_residual_hiddens: {NET['num_residual_hiddens']}\n")
+    run_vae.main(["-m", "process", "-c", pcfg, "--device", dev.type])
+    z = load_pickle(os.path.join(root, "raw", "model_epoch0",
+                                 "C5_latent_space.pkl"))
+    if z.shape != (N_PATCHES, NET["num_hiddens"] * 256) or \
+            not np.isfinite(z).all():
+        raise AssertionError(f"process on the AAE checkpoint wrote "
+                             f"{z.shape}")
+    if vq.vq_lookup.launches or vq.vq_indices.launches:
+        raise AssertionError("a VQ kernel launched on the AAE's path")
+
+    # the step at batch 768 on a device-resident batch
+    timed = copy.deepcopy(fresh).to(dev)
+    x = torch.from_numpy(dataset[:TRAIN_BATCH]).to(dev)
+    rel = torch.from_numpy(data_utils.slice_relation_mat(
+        relation_mat, np.arange(TRAIN_BATCH))).to(dev)
+    step = make_adversarial_step(
+        timed, make_optimizers(timed), augment=True,
+        generator=torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_cuda(torch, lambda: step(x, rel), 5)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"adversarial step (3 updates), batch {TRAIN_BATCH}, "
+        f"device-resident: {step_ms:.6f} ms, "
+        f"{TRAIN_BATCH / step_ms * 1e3:.1f} patches/s; peak device memory "
+        f"{peak:.3f} GB{tag}")
+    prof = profile_steps(torch, lambda: step(x, rel), 2, step_ms,
+                         families=E1_FAMILIES, other=E1_OTHER, tag=tag)
+    del timed, x, rel, step
+    torch.cuda.empty_cache()
+    # one step card vs CPU, from the weights train_adversarial wrote
+    data = load_pickle(os.path.join(raw, "im_static_patches.pkl"))[:, :, 0]
+    checks = adv_step_vs_cpu(torch, fresh, data, dev, tag)
+    return dict(wall=wall, hist=hist[0], step_ms=step_ms, peak_gb=peak,
+                idle=None if prof is None else
+                max(0.0, 1 - prof["busy_ms"] / step_ms),
+                checks=checks)
+
+
+def phase_recon_eval(torch, vq, root, dev, weights, data, tag):
+    """evaluate_recon_losses of phase 4's VQ_VAE_z16 on phase 4's well: the
+    whole well on the card (its vq_lookup launches counted), and a subset
+    drawn by the function's own seed card vs CPU."""
+    from dynamorph_tpu_torch.analysis.recon_eval import (
+        evaluate_recon_losses, recon_loss_summary)
+    from dynamorph_tpu_torch.models import VQVAEz16
+    from dynamorph_tpu_torch.models.jax_import import (
+        load_reference_checkpoint)
+    from dynamorph_tpu_torch.train.data import zscore_patch
+
+    def load():
+        m = VQVAEz16(num_inputs=2, **NET)
+        m.load_state_dict(load_reference_checkpoint(
+            os.path.join(weights, "model.pt")), strict=True)
+        return m
+
+    dataset = zscore_patch(data[:, :, 0]).astype(np.float32)
+    card = load()
+    vq.vq_lookup.launches = 0
+    t0 = time.perf_counter()
+    losses = evaluate_recon_losses(card, dataset, n_samples=None, device=dev)
+    wall = time.perf_counter() - t0
+    launches = vq.vq_lookup.launches
+    want = -(-N_PATCHES // 256)
+    mean, std = recon_loss_summary(losses)
+    log(f"evaluate_recon_losses, VQ_VAE_z16 on the {N_PATCHES}-patch well: "
+        f"{wall:.3f} s, mean {mean:.6f} std {std:.6f}; vq_lookup launches "
+        f"{launches} (expected {want}){tag}")
+    if launches != want or losses.shape != (N_PATCHES,) or \
+            not np.isfinite(losses).all():
+        raise AssertionError(f"recon eval: {launches} launches, "
+                             f"{losses.shape}")
+
+    sub_card = evaluate_recon_losses(card, dataset, n_samples=RECON_SUBSET,
+                                     device=dev)
+    cpu = load()
+    sub_cpu = evaluate_recon_losses(cpu, dataset, n_samples=RECON_SUBSET,
+                                    device="cpu")
+    # the codes each side took, on the subset the function drew (seed 123)
+    idx = np.random.RandomState(123).choice(np.arange(N_PATCHES),
+                                            (RECON_SUBSET,), replace=False)
+    x = torch.from_numpy(dataset[idx])
+    zb_g, _, i_g = card.encode(x.to(dev))
+    zb_c, _, i_c = cpu.encode(x)
+    i_g = i_g.cpu()
+    flipped = (i_g != i_c).flatten(1).any(1)
+    if bool(flipped.any()):
+        d = NET["num_hiddens"]
+        cb = cpu.vq.w.weight.detach()
+        pos = torch.nonzero((i_g != i_c).flatten())[:, 0]
+
+        def rows(z):
+            return z.permute(0, 2, 3, 1).reshape(-1, d)
+        check_flips_vs_latents(torch, "recon eval", rows(zb_c)[pos],
+                               rows(zb_g.cpu())[pos],
+                               cb[i_c.flatten()[pos]], cb[i_g.flatten()[pos]])
+    same = ~flipped.numpy()
+    err = float(np.max(np.abs(sub_card - sub_cpu)[same] /
+                       np.abs(sub_cpu)[same]))
+    log(f"  card vs CPU on {RECON_SUBSET} samples (seed 123): per-sample "
+        f"losses within {err:.3e} relative where every code agrees "
+        f"(limit {RECON_RTOL:g}); {int(flipped.sum())} samples with a code "
+        f"flip, each at a float64 near-tie{tag}")
+    if err > RECON_RTOL:
+        raise AssertionError(f"recon eval card vs CPU {err:.3e}")
+    return dict(wall=wall, launches=launches, mean=mean, std=std,
+                subset_rel=err, flipped=int(flipped.sum()))
+
+
+def cpca_host_eigh(mats):
+    """numpy float64 eigh of each matrix (descending), in a thread: LAPACK
+    releases the GIL, so the card's work goes on beside it."""
+    import concurrent.futures
+
+    def run():
+        out = []
+        for m in mats:
+            w, v = np.linalg.eigh(m)
+            out.append((w[::-1], v[:, ::-1]))
+        return out
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    fut = pool.submit(run)
+    pool.shutdown(wait=False)
+    return fut
+
+
+def phase_cpca(torch, dev, tag):
+    """fit_cpca on the plate; the covariances against float64 on the host;
+    the float64 eigendecompositions start in a thread."""
+    from dynamorph_tpu_torch.reduce.cpca import (auto_alphas, covariances,
+                                                  fit_cpca)
+
+    n = PLATE_WELLS * PLATE_PATCHES
+    x = plate_latents(torch, dev, n, SEED + 10)
+    host = x.cpu().numpy()
+    del x
+    torch.cuda.empty_cache()
+    target, background = host[:n // 2], host[n // 2:]
+    alphas = auto_alphas()
+    t0 = time.perf_counter()
+    fit = fit_cpca(target, background, n_components=CPCA_K, alphas=alphas,
+                   device=dev)
+    fit_s = time.perf_counter() - t0
+    c_t, c_b = (c.cpu().numpy() for c in covariances(target, background,
+                                                       dev))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cov_err = []
+    for got, a in ((c_t, target), (c_b, background)):
+        ac = a.astype(np.float64)
+        ac -= ac.mean(axis=0)
+        want = (ac.T @ ac) / (len(ac) - 1)
+        cov_err.append(float(np.linalg.norm(got - want) /
+                             np.linalg.norm(want)))
+    host_cov_s = time.perf_counter() - t0
+    log(f"fit_cpca on the plate ({n // 2} target x {LATENT_LEN}, {n // 2} "
+        f"background, alphas {[round(float(a), 4) for a in alphas]}, k "
+        f"{CPCA_K}): {fit_s:.3f} s (two float64 covariances, "
+        f"{len(alphas)} float32 eigh of {LATENT_LEN}^2, projections); "
+        f"covariances vs float64 on the host: {cov_err[0]:.3e}, "
+        f"{cov_err[1]:.3e} relative (limit {CPCA_COV_RTOL:g}; host "
+        f"{host_cov_s:.1f} s){tag}")
+    if max(cov_err) > CPCA_COV_RTOL:
+        raise AssertionError(f"cPCA covariances {cov_err}")
+    mats = [c_t - a * c_b for a in alphas]
+    return dict(fit=fit, fit_s=fit_s, cov_err=cov_err, mats=mats,
+                eigh=cpca_host_eigh(mats), target_mean=target.mean(axis=0))
+
+
+def check_cpca_components(cp, tag):
+    """The fit's fp32 components against the host's float64 eigh."""
+    t0 = time.perf_counter()
+    ref = cp["eigh"].result()
+    wait_s = time.perf_counter() - t0
+    held, rayleigh_only, worst_cos, worst_ray = 0, 0, 0.0, 0.0
+    for (a, comp, proj), (w, v), m in zip(cp["fit"], ref, cp["mats"]):
+        if comp.shape != (CPCA_K, LATENT_LEN) or \
+                not np.isfinite(proj).all():
+            raise AssertionError(f"cPCA alpha {a}: {comp.shape}")
+        scale = float(np.abs(w).max())
+        for i in range(CPCA_K):
+            c = comp[i].astype(np.float64)
+            ray = abs(float(c @ m @ c) - w[i]) / scale
+            worst_ray = max(worst_ray, ray)
+            if ray > CPCA_RAYLEIGH_REL:
+                raise AssertionError(f"cPCA alpha {a} component {i}: "
+                                     f"Rayleigh quotient {ray:.3e} off")
+            gap = min(w[i - 1] - w[i] if i else np.inf, w[i] - w[i + 1])
+            if gap < CPCA_GAP_REL * scale:
+                rayleigh_only += 1
+                continue
+            cos = abs(float(c @ v[:, i]))
+            worst_cos = max(worst_cos, 1 - cos)
+            if 1 - cos > CPCA_COS_TOL:
+                raise AssertionError(f"cPCA alpha {a} component {i}: "
+                                     f"|cos| {cos} to float64")
+            held += 1
+    log(f"  cPCA components vs numpy.linalg.eigh in float64 (host, waited "
+        f"{wait_s:.1f} s for it): {held} held by the gap rule (worst 1 - "
+        f"|cos| {worst_cos:.3e}, limit {CPCA_COS_TOL:g}), {rayleigh_only} "
+        f"inside eigenvalue clusters closer than {CPCA_GAP_REL:g} of max "
+        f"|w|, held by their Rayleigh quotient (worst {worst_ray:.3e} of "
+        f"max |w|, limit {CPCA_RAYLEIGH_REL:g}){tag}")
+    if held < 1:
+        raise AssertionError("no cPCA component stood clear of its "
+                             "neighbours")
+    return dict(held=held, rayleigh_only=rayleigh_only, worst_cos=worst_cos,
+                worst_rayleigh=worst_ray, wait_s=wait_s)
+
+
+def labels_vs_cpu(torch, what, x, card, cpu):
+    """k-means labels card vs CPU: equal except at a float64 near-tie of the
+    point's two centres (the CPU's)."""
+    diff = np.nonzero(card.labels_ != cpu.labels_)[0]
+    if len(diff):
+        c = torch.from_numpy(cpu.cluster_centers_)
+        gap, allowed = tie_gap(torch, torch.from_numpy(x[diff]),
+                               c[cpu.labels_[diff]], c[card.labels_[diff]])
+        if bool((gap > allowed).any()):
+            raise AssertionError(f"{what}: card vs CPU labels differ away "
+                                 "from a near-tie")
+    return len(diff)
+
+
+def phase_states(torch, root, dev, cp, data, tag):
+    """State clustering and trajectory dynamics on the plate's PCs and on
+    synthetic tracks, the k-means card vs CPU; the PC montage of the
+    well."""
+    from dynamorph_tpu_torch.analysis import (pc_samples, state_clustering,
+                                              trajectory_dynamics)
+    from dynamorph_tpu_torch.io.pickles import load_pickle
+
+    secs = {}
+    comp0 = cp["fit"][0][1]                     # alpha 0: PCA of the target
+    n = PLATE_WELLS * PLATE_PATCHES
+    x = plate_latents(torch, dev, n, SEED + 10)
+    from dynamorph_tpu_torch.core.device import fp32_strict
+
+    with torch.no_grad(), fp32_strict():
+        pcs = ((x - torch.from_numpy(cp["target_mean"]).to(dev))
+               @ torch.from_numpy(comp0).to(dev).T).double().cpu().numpy()
+    del x
+    torch.cuda.empty_cache()
+    trajs = [list(range(i, i + TRAJ_LEN)) for i in range(0, n, TRAJ_LEN)]
+    flips = {}
+    for diffs in (False, True):
+        key = "diffs" if diffs else "raw"
+        t0 = time.perf_counter()
+        km, feats, labels = state_clustering.kmeans_on_short_trajs(
+            pcs, trajs, length=STATE_LEN, n_clusters=STATE_CLUSTERS,
+            diffs=diffs, seed=SEED, device=dev)
+        secs[f"kmeans_{key}"] = time.perf_counter() - t0
+        km_cpu, _, _ = state_clustering.kmeans_on_short_trajs(
+            pcs, trajs, length=STATE_LEN, n_clusters=STATE_CLUSTERS,
+            diffs=diffs, seed=SEED, device="cpu")
+        flips[key] = labels_vs_cpu(torch, f"kmeans_on_short_trajs {key}",
+                                   feats, km, km_cpu)
+        log(f"kmeans_on_short_trajs ({key}): {len(feats)} windows x "
+            f"{feats.shape[1]}, {STATE_CLUSTERS} clusters, 10 restarts: "
+            f"{secs[f'kmeans_{key}']:.3f} s on the card, inertia "
+            f"{km.inertia_:.6g} (CPU {km_cpu.inertia_:.6g}), "
+            f"{km.n_iter_} iterations; labels card vs CPU differ at "
+            f"{flips[key]} windows (float64 near-ties){tag}")
+
+    r = np.random.RandomState(SEED + 13)
+    scale = r.choice(MOVE_SCALES, len(trajs))
+    pos = np.cumsum(r.randn(len(trajs), TRAJ_LEN, 2) * scale[:, None, None],
+                    axis=1) + r.rand(len(trajs), 1, 2) * 2048
+    tracks = [{t: p[t] for t in range(TRAJ_LEN)} for p in pos]
+    t0 = time.perf_counter()
+    states = state_clustering.movement_state_clustering(
+        tracks, length=STATE_LEN, n_clusters=len(MOVE_SCALES), seed=SEED,
+        device=dev)
+    secs["movement"] = time.perf_counter() - t0
+    states_cpu = state_clustering.movement_state_clustering(
+        tracks, length=STATE_LEN, n_clusters=len(MOVE_SCALES), seed=SEED,
+        device="cpu")
+    if states != states_cpu:
+        raise AssertionError("movement states card vs CPU differ")
+    right = sum(int(np.all(scale[v] == MOVE_SCALES[i]))
+                for i, v in enumerate(states.values()))
+    log(f"movement_state_clustering on {len(tracks)} synthetic tracks of "
+        f"{TRAJ_LEN} frames: {secs['movement']:.3f} s; states "
+        + json.dumps({k: len(v) for k, v in states.items()})
+        + f", equal to the CPU's; {right} of {len(MOVE_SCALES)} states hold "
+        f"exactly one drift scale{tag}")
+
+    t0 = time.perf_counter()
+    curve = trajectory_dynamics.msd_curve(tracks)
+    alpha, diff_c = trajectory_dynamics.fit_msd_powerlaw(curve)
+    secs["msd"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    feats, _ = state_clustering.trajectory_summaries(trajs, tracks, pcs)
+    # the conditions: each track's drift scale, as a plate's wells carry
+    # their treatment; the movement states' medians start the components
+    cond = np.searchsorted(MOVE_SCALES, scale)
+    init = np.stack([np.median(feats[v], axis=0) for v in states.values()])
+    gmm = state_clustering.well_conditioned_gmm(feats, cond, init)
+    secs["gmm"] = time.perf_counter() - t0
+    if not (np.isfinite(gmm["posterior"]).all() and
+            np.allclose(gmm["posterior"].sum(1), 1.0)):
+        raise AssertionError("well_conditioned_gmm posterior")
+    agree = float(np.mean(gmm["states"] == cond))
+    log(f"msd_curve + fit_msd_powerlaw: {secs['msd']:.3f} s, alpha "
+        f"{alpha:.4f}, D {diff_c:.4f} ({len(curve)} lags); "
+        f"trajectory_summaries -> well_conditioned_gmm ({len(feats)} x "
+        f"{feats.shape[1]}, {len(MOVE_SCALES)} conditions, {len(init)} "
+        f"states): {secs['gmm']:.3f} s, states "
+        + json.dumps(np.bincount(gmm["states"],
+                                 minlength=len(init)).tolist())
+        + f", {agree:.4f} of the tracks in their drift scale's state{tag}")
+
+    t0 = time.perf_counter()
+    z = load_pickle(os.path.join(root, "raw", "weights",
+                                 "C5_latent_space.pkl"))
+    pc1 = (z - cp["target_mean"]) @ comp0[0].astype(np.float64)
+    patches = data[:, :, 0] / float(data.max())
+    out = os.path.join(root, "pc_montage")
+    pc_samples.pc_sample_montage(patches, pc1, out, pc_name="PC1")
+    secs["montage"] = time.perf_counter() - t0
+    names = sorted(os.listdir(out))
+    sizes = {png_size(os.path.join(out, f))[:3] for f in names}
+    if len(names) != 10 or sizes != {(128, 128, 16), (640, 512, 16)}:
+        raise AssertionError(f"pc_sample_montage wrote {names} {sizes}")
+    log(f"pc_sample_montage on the well's {len(patches)} patches along PC1: "
+        f"{secs['montage']:.3f} s, {len(names)} 16-bit PNGs{tag}")
+    return dict(secs=secs, flips=flips, states={k: len(v) for k, v in
+                                                 states.items()},
+                msd_alpha=alpha, gmm_agree=agree)
+
+
+def phase_after_latents(torch, vq, root, dev, card, well):
+    phase("13. after the latents: train_adversarial (AAE, batch 768), "
+          "evaluate_recon_losses (VQ_VAE_z16), fit_cpca on the plate, "
+          "state clustering and dynamics, on cuda")
+    tag = f" [{card}]"
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    vq.vq_lookup.launches = vq.vq_indices.launches = 0
+    parts = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t0
+        return out
+
+    cp = timed("cpca", phase_cpca, torch, dev, tag)
+    adv = timed("adversarial", phase_adversarial, torch, vq, root, dev, tag)
+    recon = timed("recon_eval", phase_recon_eval, torch, vq, root, dev,
+                  well["weights"], well["data"], tag)
+    states = timed("states", phase_states, torch, root, dev, cp,
+                   well["data"], tag)
+    comps = timed("cpca_check", check_cpca_components, cp, tag)
+    if vq.vq_indices.launches:
+        raise AssertionError("vq_indices launched after the latents")
+    secs = time.perf_counter() - t_phase
+    log(f"phase 13 took {secs:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
+        + " (the host's float64 eigh runs in a thread from the cPCA part "
+        "to the check)")
+    return dict(adv=adv, recon=recon, cpca=dict(
+        fit_s=cp["fit_s"], cov_err=cp["cov_err"], **comps), states=states,
+        launches={"vq_lookup": recon["launches"],
+                  "vq_indices": vq.vq_indices.launches}, secs=secs)
 
 
 def main() -> int:
@@ -3479,9 +4180,10 @@ def main() -> int:
                                    smi)
         fused_run = phase_fused_stream(torch, vq, root, dev,
                                        main_run["weights"], smi, raw_pcs, seg)
-        other = phase_other_encoders(
+        other, hard_step = phase_other_encoders(
             torch, vq, root, dev, smi,
             dict(raw=os.path.join(root, "raw"), data=main_run["data"]))
+        after = phase_after_latents(torch, vq, root, dev, smi, main_run)
 
     z16 = timed["z16 encode"]
     ti = train_timed["indices"]
@@ -3511,6 +4213,7 @@ def main() -> int:
             fused_run["runs"]["streaming"]["launches"]["vq_lookup"],
         "launches_other_encoders_path": sum(
             r["launches"]["vq_lookup"] for r in other.values()),
+        "launches_after_latents_path": after["launches"]["vq_lookup"],
         "z32": {k: timed["z32 encode"][k] for k in
                 ("ms", "ms_per_call", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "bound_share", "rowwise_ms")},
@@ -3542,6 +4245,7 @@ def main() -> int:
             fused_run["runs"]["streaming"]["launches"]["vq_indices"],
         "launches_other_encoders_path": sum(
             r["launches"]["vq_indices"] for r in other.values()),
+        "launches_after_latents_path": after["launches"]["vq_indices"],
         "flips_vs_plain": {k: indices[k]["flips"] for k in indices},
         "flip_rate_vs_f64": {k: indices[k]["f64_rate"] for k in indices},
     }]
@@ -3572,7 +4276,15 @@ def main() -> int:
         f"batch {TRAIN_BATCH} / encode patches/s (resident): " + ", ".join(
             f"{n} {r['timing']['step_ms']:.3f} ms / "
             f"{r['resident_patches_s']:.1f}" for n, r in other.items())
-        + f"; whole script "
+        + f"; ResNet18 hard-negative step at "
+        + ", ".join(f"{w} {c['grad_ratio']:.3f} (TF32 control "
+                    f"{c['control']:.3f})" for w, c in hard_step.items())
+        + f" of its limit; after the latents: adversarial step at batch "
+        f"{TRAIN_BATCH} {after['adv']['step_ms']:.3f} ms, recon eval of "
+        f"{N_PATCHES} patches {after['recon']['wall']:.3f} s "
+        f"({after['recon']['launches']} vq_lookup launches), plate cPCA "
+        f"fit {after['cpca']['fit_s']:.3f} s, phase 13 "
+        f"{after['secs']:.1f} s; whole script "
         f"{time.perf_counter() - t_start:.1f} s [{smi}]")
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())

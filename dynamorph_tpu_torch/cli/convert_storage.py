@@ -6,7 +6,7 @@ Usage:
 
 PATH may be a file (stacks_<t>.pkl/.npz, *_static_patches.pkl/.npz,
 *_latent_space*.pkl/.npz) or a directory, which is walked recursively for
-convertible artifacts. Sources are kept.
+convertible artifacts. Sources are kept unless --delete-source is passed.
 
 No reference equivalent: the reference has only the float64 pickle contract
 (pipeline/patch_VAE.py:454-462, extract_patches.py:270-272); this tool moves
@@ -58,6 +58,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--to", required=True, choices=["compact", "pickle"])
     ap.add_argument("paths", nargs="+")
+    ap.add_argument("--delete-source", action="store_true",
+                    help="remove each source file after converting it")
     args = ap.parse_args(argv)
 
     src_ext = ".pkl" if args.to == "compact" else ".npz"
@@ -70,6 +72,9 @@ def main(argv=None) -> int:
         try:
             dst = convert_storage(f, args.to)
             print(f"{f} -> {dst}")
+            if args.delete_source:
+                # only once its conversion has returned without raising
+                os.remove(f)
         except Exception as e:
             n_err += 1
             log.error("failed converting %s: %s", f, e)

@@ -28,7 +28,7 @@ reads ``z_mean``.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -262,20 +262,23 @@ class AAEModel(_Z16Latent):
         return common.apply_z16_encoder(self.enc, x)
 
     def discriminate(self, z: torch.Tensor, train: bool,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None,
+                     keep: Optional[Sequence[torch.Tensor]] = None):
         """The discriminator's score in (0, 1), (B, 1) (``_apply_disc``,
         dynamorph_tpu/models/vae.py:325-351). Batch norm runs as the
         caller's block set it; with ``train`` each dropout keeps a unit
-        with probability 0.75 (drawn from ``generator``) and scales it by
-        1 / 0.75."""
+        with probability 0.75 and scales it by 1 / 0.75. The two boolean
+        keep masks, (B, 8 nh) and (B, nh), are ``keep`` or drawn from
+        ``generator``."""
         d = self.enc_d
         h = d[:11](z)
-        for fc, act in ((d[11], d[13]), (d[14], d[16])):
+        for i, (fc, act) in enumerate(((d[11], d[13]), (d[14], d[16]))):
             h = fc(h)
             if train:
-                keep = torch.rand(h.shape, generator=generator,
-                                  device=h.device) < self._KEEP
-                h = torch.where(keep, h / self._KEEP, 0.0)
+                k = torch.rand(h.shape, generator=generator,
+                               device=h.device) < self._KEEP \
+                    if keep is None else keep[i].to(h.device)
+                h = torch.where(k, h / self._KEEP, 0.0)
             h = act(h)
         return d[18](d[17](h))
 
@@ -303,21 +306,26 @@ class AAEModel(_Z16Latent):
 
     def adversarial_loss(self, x: torch.Tensor, train: bool = True,
                          generator: Optional[torch.Generator] = None,
-                         z_prior: Optional[torch.Tensor] = None):
+                         z_prior: Optional[torch.Tensor] = None,
+                         keep: Optional[Sequence[torch.Tensor]] = None):
         """Generator and discriminator losses (reference vae.py:834-853;
         ``adversarial_loss``, dynamorph_tpu/models/vae.py:376-404). The
         encoder's latents and a standard-normal prior sample (``z_prior``,
         or drawn from ``generator``) go through the discriminator in that
         order, so its running statistics move as the reference's two
-        sequential calls move them."""
+        sequential calls move them. ``keep`` gives the four dropout masks
+        in the order they are applied (the data's two, then the prior's);
+        without it they are drawn from ``generator``."""
         tiny = 1e-9
         with torch.set_grad_enabled(train), fp32_strict(), \
                 common.batch_stats(self, train):
             z_data = self._encode(x)
             if z_prior is None:
                 z_prior = _normal(z_data.shape, z_data, generator)
-            s_data = self.discriminate(z_data, train, generator)
-            s_prior = self.discriminate(z_prior, train, generator)
+            s_data = self.discriminate(z_data, train, generator,
+                                       None if keep is None else keep[:2])
+            s_prior = self.discriminate(z_prior, train, generator,
+                                        None if keep is None else keep[2:])
             g_loss = -torch.mean(torch.log(s_data + tiny))
             d_loss = -torch.mean(torch.log(s_prior + tiny) +
                                  torch.log(1 - s_data.detach() + tiny))

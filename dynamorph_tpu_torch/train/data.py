@@ -8,12 +8,14 @@ and splits are identical. The device side lives in ``train/steps.py``.
 from __future__ import annotations
 
 import collections
+import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 from scipy.sparse import csr_matrix
 
 from ..core.constants import CHANNEL_MAX
+from ..io.pickles import load_pickle
 
 
 def reorder_with_trajectories(dataset: np.ndarray, relations: Dict, seed=None):
@@ -188,3 +190,37 @@ def unzscore(im_norm: np.ndarray, mean, std) -> np.ndarray:
     needed before computing image-scale metrics such as SSIM on
     reconstructions."""
     return im_norm * (std + np.finfo(float).eps) + mean
+
+
+def prepare_dataset_from_collection(fs: Sequence[str], cs=(0, 1),
+                                    input_shape=(128, 128), file_path="./",
+                                    file_suffix="_all_patches.pkl"):
+    """Load patches from per-site ``<site>_all_patches.pkl`` collections
+    (reference run_training.py:61-96; deprecated input format kept for
+    compatibility with datasets assembled by older reference runs).
+
+    ``fs`` are patch names of the form ``.../<site>/<patch_id>``; returns a
+    float array (N, len(cs), *input_shape) in ``fs`` order.
+
+    Each one-channel map is resized with ``pipeline.patch_vae._resize_chw``,
+    the port's cv2 bilinear, in place of the JAX package's ``cv2.resize``:
+    on one channel it equals cv2 bit for bit at integer factors, and within
+    2.5e-6 of the largest magnitude at other sizes.
+    """
+    # imported here: pipeline.patch_vae imports this module
+    from ..pipeline.patch_vae import _resize_chw
+
+    tensors = {}
+    sites = set(f.split("/")[-2] for f in fs)
+    for site in sites:
+        file_dat = load_pickle(os.path.join(file_path, f"{site}{file_suffix}"))
+        for f_n in (f for f in fs if f.split("/")[-2] == site):
+            dat = np.asarray(file_dat[f_n]["masked_mat"], dtype=float)
+            dat = dat[np.arange(dat.shape[0]) if cs is None else np.array(cs)]
+            # over the leading (channel, z) axes, as the reference's
+            # cv2_fn_wrapper (extract_patches.py:21-37)
+            flat = dat.reshape(-1, *dat.shape[-2:])
+            resized = np.stack(
+                [_resize_chw(m, tuple(input_shape)) for m in flat], 0)
+            tensors[f_n] = resized.reshape(*dat.shape[:-2], *input_shape)
+    return np.stack([tensors[key] for key in fs], 0)

@@ -40,6 +40,7 @@ from dynamorph_tpu_torch.seg.inference import predict_whole_map
 from dynamorph_tpu_torch.track import clustering
 from test_fused_seg_patch import CLUSTER, StubSeg, _make_site
 from test_torch_patch_track import _assert_same
+from test_torch_train import _few_threads  # noqa: F401
 
 SITE = "C5-Site_0"
 WINDOW = 32

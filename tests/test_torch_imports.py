@@ -52,6 +52,12 @@ _SLICE_MODULES = [
     "dynamorph_tpu_torch.models.vae", "dynamorph_tpu_torch.models.losses",
     "dynamorph_tpu_torch.models.resnet_simclr",
     "dynamorph_tpu_torch.train.triplet_data",
+    "dynamorph_tpu_torch.train.adversarial", "dynamorph_tpu_torch.reduce.cpca",
+    "dynamorph_tpu_torch.analysis.trajectory_dynamics",
+    "dynamorph_tpu_torch.analysis.kmeans",
+    "dynamorph_tpu_torch.analysis.state_clustering",
+    "dynamorph_tpu_torch.analysis.recon_eval",
+    "dynamorph_tpu_torch.analysis.pc_samples",
 ]
 
 

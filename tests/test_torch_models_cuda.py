@@ -13,7 +13,8 @@ positive triplets within one triplet; the triplet loss against the
 float64 miner on the card's embedding), and its gradients and a ResNet's
 embedding, per tensor in relative L2, held against the same step in
 float64 on the CPU taken on the fp32 step's side of every ReLU, triplet
-hinge and max-pool (its choices replayed): the card at most 3 x the CPU's
+hinge, max-pool and, with the hard-negative miner, of its two maxima and
+its clamp (its choices replayed): the card at most 3 x the CPU's
 error plus 1e-5 (chip_smoke.py phases 6 and 12), beside a control step
 with TF32 on that must land above it. Against float64's own choices, one
 element within rounding of a kink flips and moves whole gradients by
@@ -58,14 +59,18 @@ def cuda():
     return torch.device("cuda")
 
 
+def _model(name):
+    """``ResNet18-hard``: ResNet18 with the hard-negative miner."""
+    if name.startswith("ResNet"):
+        return EncodeProject(arch=name.split("-")[0],
+                             hard_negative=name.endswith("-hard"))
+    return {"VAE": VAEModel, "IWAE": IWAEModel, "AAE": AAEModel}[name](**Z16)
+
+
 def _build(name, seed=0):
     """A seeded model with batch norm moved off the identity."""
     torch.manual_seed(seed)
-    if name.startswith("ResNet"):
-        model = EncodeProject(arch=name)
-    else:
-        model = {"VAE": VAEModel, "IWAE": IWAEModel, "AAE": AAEModel}[name](
-            **Z16)
+    model = _model(name)
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
@@ -143,18 +148,20 @@ def _step(model, x, labels=None, noise=None, strict=fp32_strict,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("init", ["seeded", "default"])
-@pytest.mark.parametrize("name", ["VAE", "IWAE", "AAE", "ResNet18"])
+@pytest.mark.parametrize("name", ["VAE", "IWAE", "AAE", "ResNet18",
+                                  "ResNet18-hard"])
 def test_train_step_card_vs_cpu(cuda, name, init, monkeypatch):
     """``seeded``: batch norm off the identity; ``default``: PyTorch's own
     init, as run_training starts (seed 3 of it flipped a residual ReLU on
     the card in tools/step_grad_witness.py's step). Each fp32 step is held
-    against float64 on its own side of every ReLU, hinge and max-pool."""
+    against float64 on its own side of every kink (``kink_branches``: the
+    ReLUs, the all-triplet hinge, the max-pool, and the hard-negative
+    miner's two maxima and its clamp)."""
     if init == "seeded":
         base = _build(name, seed=2)
     else:
         torch.manual_seed(3)
-        base = EncodeProject(arch=name) if name.startswith("ResNet") else \
-            {"VAE": VAEModel, "IWAE": IWAEModel, "AAE": AAEModel}[name](**Z16)
+        base = _model(name)
     x = _patches(16, seed=3)
     labels = torch.arange(16) // 4 if name.startswith("ResNet") else None
     g = torch.Generator().manual_seed(4)

@@ -49,6 +49,7 @@ from dynamorph_tpu_torch.ops.patch import (extract_cell_patches,
 from dynamorph_tpu_torch.pipeline import patch as port_patch
 from dynamorph_tpu_torch.pipeline.patch_vae import (_resize_chw,
                                                     combine_dataset)
+from test_torch_train import _few_threads  # noqa: F401
 
 SITE = "B2-Site_0"
 WELL = "B2"

@@ -24,6 +24,7 @@ from dynamorph_tpu_torch.models.jax_import import state_dict_from_jax
 from dynamorph_tpu_torch.pipeline.patch_vae import (_save_recon_images,
                                                     encode_patches,
                                                     process_vae)
+from test_torch_train import _few_threads  # noqa: F401
 
 WELL = "C5"
 SITES = ["C5-Site_0", "C5-Site_1"]

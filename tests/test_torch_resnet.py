@@ -46,6 +46,7 @@ from dynamorph_tpu.models import resnet_simclr as jresnet
 from dynamorph_tpu.models.torch_import import import_encode_project
 from dynamorph_tpu.train import triplet_data as jtd
 from dynamorph_tpu.train.data import zscore_patch
+from dynamorph_tpu.train import trainer as jax_trainer
 from dynamorph_tpu.train.trainer import train_triplet as jax_train_triplet
 from dynamorph_tpu_torch.cli import run_training, run_vae
 from dynamorph_tpu_torch.io.pickles import load_pickle, save_pickle
@@ -58,6 +59,7 @@ from dynamorph_tpu_torch.train import triplet_data as ttd
 from dynamorph_tpu_torch.train.steps import make_triplet_steps
 from dynamorph_tpu_torch.train.trainer import train_triplet
 from test_torch_vae_family import numpy_weights
+from test_torch_train import _few_threads  # noqa: F401
 
 ATOL = 1e-4                             # of the largest value
 GRAD_VS_JAX, GRAD_FLOOR = 3.0, 1e-6
@@ -67,17 +69,6 @@ GRAD_VS_JAX, GRAD_FLOOR = 3.0, 1e-6
 ONE_TRIPLET = 0.01
 LABELS = np.array([0, 0, 0, 1, 1, 1, 2, 2])
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _few_threads():
-    """Two intra-op threads for this module's CPU convolutions: the suite
-    runs several workers on the machine's cores, and oneDNN at one thread
-    a core per worker thrashes (this file took 15x its lone time under six
-    workers with torch's default)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 def _close(a, b, what):
     a, b = np.asarray(a), np.asarray(b)
@@ -390,9 +381,12 @@ def trained(tmp_path_factory):
     kw = dict(n_epochs=2, lr=1e-6, batch_size=4, patience=5,
               earlystop_metric="positive_triplet")
     np.random.seed(9)
-    _, _, hist_j = jax_train_triplet(jmodel, *_triplet_sets(jtd),
-                                     str(root / "jax"), params=params,
-                                     state=state, **kw)
+    with pytest.MonkeyPatch.context() as mp:
+        # the JAX side's orbax checkpoints are never read here
+        mp.setattr(jax_trainer, "save_checkpoint", lambda *a, **k: None)
+        _, _, hist_j = jax_train_triplet(jmodel, *_triplet_sets(jtd),
+                                         str(root / "jax"), params=params,
+                                         state=state, **kw)
     np.random.seed(9)
     model = _port("ResNet18", params, state)
     out = root / "port"

@@ -33,6 +33,7 @@ from dynamorph_tpu_torch.models.jax_import import state_dict_from_jax
 from dynamorph_tpu_torch.seg.data import plot_prediction_prob
 from dynamorph_tpu_torch.seg.inference import predict_whole_map
 from dynamorph_tpu_torch.seg.model import Segment
+from test_torch_train import _few_threads  # noqa: F401
 
 WINDOW = 32
 LOGIT_RTOL = 1e-4

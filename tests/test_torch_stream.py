@@ -55,6 +55,7 @@ from test_torch_fused import (CHANNELS, WINDOW, _stub_jax, _stub_port,
                               run_port_fused)
 from test_torch_patch_track import _assert_same
 from test_torch_pipeline_vae import LE, well  # noqa: F401
+from test_torch_train import _few_threads  # noqa: F401
 
 WELL = "C5"
 SITES = ["C5-Site_0", "C5-Site_1"]

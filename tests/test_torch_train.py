@@ -1,8 +1,10 @@
 """The port's VQ-VAE training (models in train mode, steps, data utilities,
 trainer, checkpoints, ``run_training``) against the JAX package.
 
-Inputs come from numpy seeds; weights are JAX-initialised and carried over
-with ``state_dict_from_jax``. Tolerances, with their reasons:
+Inputs come from numpy seeds; weights are drawn with numpy on the JAX
+package's tree (``test_torch_vae_family.numpy_weights``: ``jax.eval_shape``
+of ``init``, so no init program compiles) and carried over with
+``state_dict_from_jax``. Tolerances, with their reasons:
 
 - one train-mode step (``apply(train=True)`` and its gradient): losses
   rtol 1e-5; gradients rtol 1e-3 with atol 1e-5 of the tensor's largest
@@ -34,6 +36,7 @@ import jax.numpy as jnp
 from dynamorph_tpu.models import VQVAEz16 as JaxZ16, VQVAEz32 as JaxZ32
 from dynamorph_tpu.train import data as jdata
 from dynamorph_tpu.train.steps import _dihedral as jax_dihedral
+from dynamorph_tpu.train import trainer as jax_trainer
 from dynamorph_tpu.train.trainer import train_vqvae as jax_train_vqvae
 from dynamorph_tpu_torch.cli import run_training, run_vae
 from dynamorph_tpu_torch.io.pickles import load_pickle, save_pickle
@@ -70,6 +73,13 @@ def _pre_bn_biases(model: nn.Module):
     return names
 
 
+def _numpy_weights(jmodel, seed):
+    # imported here: test_torch_vae_family imports this module
+    from test_torch_vae_family import numpy_weights
+
+    return numpy_weights(jmodel, seed)
+
+
 def _step_inputs(seed=5):
     r = np.random.RandomState(seed)
     x = r.randn(8, 2, 32, 32).astype(np.float32)
@@ -78,13 +88,26 @@ def _step_inputs(seed=5):
     return x, mask, rel
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two intra-op threads for a module's CPU work: the suite runs six
+    workers on the machine's cores, and torch's default of one thread a
+    core in each of them oversubscribes the machine (oneDNN thrashes: the
+    ResNet file took 15x its lone time under six workers). The port's
+    other test modules bind this fixture by importing it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module", params=sorted(NETS))
 def step_pair(request):
     """One train-mode forward and backward through both packages on the
     same weights, batch, mask and relation block."""
     jcls, tcls, network = NETS[request.param]
     jmodel = jcls(vq_impl="xla", **STEP_KW)
-    params, state = jax.device_get(jax.jit(jmodel.init)(jax.random.PRNGKey(3)))
+    params, state = _numpy_weights(jmodel, seed=3)
     x, mask, rel = _step_inputs()
 
     def loss_fn(p, s, x, rel, mask):
@@ -316,21 +339,27 @@ def test_slices_and_normalisation_match_jax(rng):
 
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
-    """train_vqvae of both packages from the same JAX-initialised weights:
-    24 patches with a mask and four trajectories, batch 8, 2 epochs, no
-    augmentation, the published lr 1e-4. The port runs on the CPU."""
+    """train_vqvae of both packages from the same numpy weights: 28 patches
+    with a mask and four trajectories, batch 10, 2 epochs, no augmentation,
+    the published lr 1e-4. 28 patches split into 24 to train (batches of
+    10, 10 and 4: a ragged last batch, so the epoch mean is one over
+    batches) and 4 to validate; the JAX side compiles two train programs
+    and one eval program. The port runs on the CPU."""
     root = tmp_path_factory.mktemp("train")
     r = np.random.RandomState(0)
-    data = r.randn(24, 2, 32, 32).astype(np.float32)
-    mask = np.where(r.rand(24, 2, 32, 32) > 0.5, 1.0, -1.0)
+    data = r.randn(28, 2, 32, 32).astype(np.float32)
+    mask = np.where(r.rand(28, 2, 32, 32) > 0.5, 1.0, -1.0)
     ds, rel, order = tdata.reorder_with_trajectories(data, _relations(), 0)
     mask = mask[order]
     jmodel = JaxZ32(vq_impl="xla", **TRAIN_KW)
-    params, state = jax.device_get(jax.jit(jmodel.init)(jax.random.PRNGKey(1)))
-    kw = dict(relation_mat=rel, mask=mask, n_epochs=2, batch_size=8,
+    params, state = _numpy_weights(jmodel, seed=1)
+    kw = dict(relation_mat=rel, mask=mask, n_epochs=2, batch_size=10,
               patience=5, transform=False, lr=1e-4)
-    _, _, hist_j = jax_train_vqvae(jmodel, ds, str(root / "jax"), params=params,
-                                   state=state, **kw)
+    with pytest.MonkeyPatch.context() as mp:
+        # the JAX side's orbax checkpoints are never read here
+        mp.setattr(jax_trainer, "save_checkpoint", lambda *a, **k: None)
+        _, _, hist_j = jax_train_vqvae(jmodel, ds, str(root / "jax"),
+                                       params=params, state=state, **kw)
     init = state_dict_from_jax(params, state, "VQ_VAE_z32")
     model = VQVAEz32(**TRAIN_KW)
     model.load_state_dict(init)

@@ -49,7 +49,7 @@ from dynamorph_tpu_torch.models.jax_import import (load_reference_checkpoint,
 from dynamorph_tpu_torch.models.registry import build_model
 from dynamorph_tpu_torch.pipeline.patch_vae import _load_model_weights
 from dynamorph_tpu_torch.train.steps import make_eval_step, make_train_step
-from test_torch_train import _pre_bn_biases
+from test_torch_train import _few_threads, _pre_bn_biases  # noqa: F401
 
 NETS = {"VAE": (jvae.VAEModel, VAEModel), "IWAE": (jvae.IWAEModel, IWAEModel),
         "AAE": (jvae.AAEModel, AAEModel)}
@@ -65,17 +65,6 @@ ATOL = 1e-4                             # of the largest value
 GRAD_VS_JAX = 3.0
 GRAD_FLOOR = 1e-6
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _few_threads():
-    """Two intra-op threads for this module's CPU convolutions: the suite
-    runs several workers on the machine's cores, and oneDNN at one thread
-    a core per worker thrashes (this file took 7x its lone time under six
-    workers with torch's default, its ResNet twin 15x)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 def numpy_weights(model, seed):
     """The JAX model's (params, state) drawn with numpy: kernels at

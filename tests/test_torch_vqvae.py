@@ -1,6 +1,8 @@
 """The port's VQ-VAE models against the JAX models on the same weights.
 
-JAX ``model.init`` -> ``jax.device_get`` -> ``state_dict_from_jax`` ->
+Weights drawn with numpy on the JAX package's tree
+(``test_torch_vae_family.numpy_weights``: ``jax.eval_shape`` of ``init``,
+so no init program compiles) -> ``state_dict_from_jax`` ->
 ``load_state_dict(strict=True)``. z16 runs at full width (16/32/64), z32 at
 a narrow one. Tolerances: z_before max-abs 1e-4 — f32 convolutions sum in
 another order on XLA-CPU than on oneDNN (the JAX package's own torch parity
@@ -21,6 +23,8 @@ from dynamorph_tpu_torch.models import VQVAEz16, VQVAEz32, get_model_cls
 from dynamorph_tpu_torch.models import common
 from dynamorph_tpu_torch.models.jax_import import (load_reference_checkpoint,
                                                    state_dict_from_jax)
+from test_torch_vae_family import numpy_weights
+from test_torch_train import _few_threads  # noqa: F401
 
 CONFIGS = {
     "z16": (JaxZ16, VQVAEz16, "VQ_VAE_z16",
@@ -35,9 +39,7 @@ B = 2
 def pair(request):
     jcls, tcls, network, kw = CONFIGS[request.param]
     jmodel = jcls(vq_impl="xla", **kw)
-    # jitted: the same values as the eager init, in a third of the time
-    params, state = jax.device_get(
-        jax.jit(jmodel.init)(jax.random.PRNGKey(3)))
+    params, state = numpy_weights(jmodel, seed=3)
     # running statistics away from the init values, so eval-mode batch norm
     # is exercised rather than the identity
     r = np.random.RandomState(11)
