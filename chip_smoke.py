@@ -175,6 +175,28 @@ passed prints the final ``{"ok": true, ...}`` line:
    ``msd_curve``, ``fit_msd_powerlaw``, ``trajectory_summaries`` ->
    ``well_conditioned_gmm`` and ``pc_sample_montage`` along PC1. This path
    reaches vq_lookup through the VQ-VAE's eval ``apply``.
+14. U-Net training and the cv2-free geometry (the JAX package's example's
+   first stage, ``examples/full_system_run.py:44-52``): the rotating,
+   mirroring sampler ``generate_patches`` draws 64 patches of 256² from 4
+   frames of 2 x 2048² uint16 with three-class probabilities (host
+   seconds); ``Segment((2, 256, 256)).fit`` at batch 8 for 2 epochs of 56
+   patches with 8 validation patches on the card (history, checkpoints,
+   seconds, peak memory); the fit step timed at batch 8 on a resident
+   batch (CUDA events; idle share and kernel families from
+   torch.profiler); the validation ROC-AUC and F1 on the card against the
+   CPU's and float64 ranks (1e-12); three fit steps at batch 2 of 128²,
+   each on its own seeded batch, from the trained weights card vs CPU,
+   each against float64 on its own side of every ReLU and the max-pool
+   (phase 12's rule, on the errors pooled over the three steps) beside a
+   TF32 control that must land over it;
+   ``SegmentWithMultipleSlice((2, 3, 256, 256))`` card vs CPU (1e-4) and
+   one frame of ``predict_whole_map(time_slices=3)``;
+   the long-axis extraction of a 2048² site with 200 elliptical cells on
+   the card (cells/s), its first 40 cells on the CPU, pickles equal;
+   ``warp_affine`` card vs CPU bit for bit in both arithmetics and the
+   extraction's batched warp timed against the extraction; the validation
+   overlays at 1108², their TIFF and a trajectory GIF (seconds). This path
+   reaches no Pallas kernel and launches neither VQ kernel.
    Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and the
    ``{"ok": true, ...}`` line.
 """
@@ -4129,6 +4151,532 @@ def phase_after_latents(torch, vq, root, dev, card, well):
                   "vq_indices": vq.vq_indices.launches}, secs=secs)
 
 
+# phase 14: U-Net training and the cv2-free geometry
+U_FRAME = 2048              # sampler stack and extraction site, px
+U_SAMPLER_T = 4             # frames of the sampler's stack
+U_PATCHES = 64              # patches the sampler draws (56 train + 8 val)
+U_VALID = 8
+U_BATCH = 8
+U_EPOCHS = 2
+U_STEP_SIZE = 128           # px of the card-vs-CPU step check (batch 2)
+U_STEP_DRAWS = 3            # its steps, each on its own seeded batch
+U_MS_FEAT = 8               # SegmentWithMultipleSlice's unet_feat
+U_CELLS = 200               # elliptical cells of the extraction site
+U_CPU_CELLS = 40            # of them, extracted on the CPU to compare
+U_VAL_SIZE = (1108, 1108)   # segmentation_validation_contours' output
+U_METRIC_TOL = 1e-12        # ROC-AUC / F1, card vs CPU vs float64 ranks
+
+
+def unet_step_grads(torch, model, x, y, fp32=True, masks=None,
+                    replay=False):
+    """One train-mode forward and backward of a U-Net on the weighted
+    cross-entropy (``Segment._make_step`` without Adam): (loss, {weight:
+    gradient as float64 on the host}). ``fp32=False`` is the TF32 control
+    (forward and backward with PyTorch's TF32 defaults); ``masks`` records
+    (or with ``replay`` replays) the choice at every ReLU and the stem's
+    max-pool (``kink_branches``)."""
+    from dynamorph_tpu_torch.core.device import fp32_strict
+    from dynamorph_tpu_torch.models.unet import weighted_ce_loss
+
+    tf32 = torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32
+    if not fp32:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with fp32_strict() if fp32 else contextlib.nullcontext(), \
+                kink_branches(torch, masks, replay) if masks is not None \
+                else contextlib.nullcontext():
+            loss = weighted_ce_loss(model.apply(x, train=True), y)
+            loss.backward()
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    grads = {n: p.grad.detach().cpu().double()
+             for n, p in model.named_parameters()
+             if p.grad is not None and n.endswith(".weight")}
+    return float(loss.detach()), grads
+
+
+def unet_sampler_stack(rng):
+    """(T, 2, 1, 2048, 2048) uint16 frames with planted bright ellipses
+    and their (T, 3, 1, 2048, 2048) float32 three-class probabilities."""
+    t_len, size = U_SAMPLER_T, U_FRAME
+    raw = rng.randint(20000, 30000, (t_len, 2, 1, size, size)) \
+        .astype(np.uint16)
+    prob = np.empty((t_len, 3, 1, size, size), np.float32)
+    yy, xx = np.ogrid[:size, :size]
+    for t in range(t_len):
+        fg = np.zeros((size, size), bool)
+        mg = np.zeros((size, size), bool)
+        for i, (cy, cx) in enumerate(rng.randint(64, size - 64, (60, 2))):
+            m = ((yy - cy) / rng.uniform(12, 30)) ** 2 + \
+                ((xx - cx) / rng.uniform(12, 30)) ** 2 < 1
+            fg |= m
+            if i % 3 == 0:
+                mg |= m
+        raw[t, 0, 0][fg] += 12000
+        prob[t, 0, 0] = np.where(fg, 0.05, 0.95)
+        prob[t, 2, 0] = np.where(mg, 0.85, 0.02)
+        prob[t, 1, 0] = 1 - prob[t, 0, 0] - prob[t, 2, 0]
+    return raw, prob
+
+
+def f64_roc_auc(truth, score):
+    """ROC-AUC in float64 from average ranks (numpy, on the host)."""
+    order = np.argsort(score, kind="mergesort")
+    s = score[order]
+    _, first, counts = np.unique(s, return_index=True, return_counts=True)
+    avg = first + (counts + 1) / 2.0
+    ranks = np.repeat(avg, counts)
+    t = truth[order]
+    n_pos = float(t.sum())
+    n_neg = float(t.size) - n_pos
+    return (ranks[t].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg)
+
+
+def unet_train_part(torch, dev, root, tag):
+    """Sampler, fit at batch 8 on the card, the step's time, idle share,
+    families and peak memory, and the validation metrics card vs CPU vs
+    float64."""
+    from dynamorph_tpu_torch.seg.data import generate_patches
+    from dynamorph_tpu_torch.seg.metrics import f1_score, roc_auc_score
+    from dynamorph_tpu_torch.seg.model import Segment
+
+    rng = np.random.RandomState(SEED + 14)
+    raw, prob = unet_sampler_stack(rng)
+    t0 = time.perf_counter()
+    patches = generate_patches(raw, prob, n_patches=U_PATCHES,
+                               x_size=SEG_WINDOW, y_size=SEG_WINDOW,
+                               rotate=True, mirror=True, seed=0)
+    sampler_s = time.perf_counter() - t0
+    assert len(patches) == U_PATCHES
+    for x, y in patches:
+        assert x.shape == (2, 1, SEG_WINDOW, SEG_WINDOW) and \
+            y.shape == (3, 1, SEG_WINDOW, SEG_WINDOW)
+        assert np.isfinite(x).all() and 0 <= x.min() and x.max() <= 65535
+    log(f"sampler: {U_PATCHES} rotated, mirrored {SEG_WINDOW}^2 patches "
+        f"from {U_SAMPLER_T} frames of 2 x {U_FRAME}^2 uint16 in "
+        f"{sampler_s:.3f} s on the host ({U_PATCHES / sampler_s:.1f} "
+        f"patches/s)")
+    del raw, prob
+
+    model_dir = os.path.join(root, "unet_fit")
+    model = Segment(input_shape=(2, SEG_WINDOW, SEG_WINDOW), n_classes=3,
+                    model_path=model_dir, seed=SEED + 14, device=dev)
+    train, valid = patches[:-U_VALID], patches[-U_VALID:]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist = model.fit(train, batch_size=U_BATCH, n_epochs=U_EPOCHS,
+                     valid_patches=valid)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_peak = torch.cuda.max_memory_allocated() / 1e9
+    assert len(hist) == U_EPOCHS and all(
+        np.isfinite([h["loss"], h["val_loss"]]).all() for h in hist)
+    names = sorted(os.listdir(model_dir))
+    assert names == ["weights.%02d-%.2f" % (h["epoch"], h["val_loss"])
+                     for h in hist], names
+    model.save(os.path.join(root, "unet_trained"))
+    log(f"fit: {len(train)} patches, batch {U_BATCH}, {U_EPOCHS} epochs "
+        f"(+{U_VALID} validation patches): {fit_s:.3f} s, history "
+        + "; ".join(f"epoch {h['epoch']} loss {h['loss']:.6f} val_loss "
+                    f"{h['val_loss']:.6f} roc_auc {h['val_roc_auc']:.6f} "
+                    f"f1 {h['val_f1']:.6f}" for h in hist)
+        + f"; peak device memory {fit_peak:.3f} GB{tag}")
+
+    # the step on a device-resident batch of 8
+    X, y = model._arrays(train[:U_BATCH], "prob")
+    xb, yb = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
+    _, step = model._make_step(1e-3)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_cuda(torch, lambda: step(xb, yb), 10)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    flops = 3 * conv_flops(torch, model, xb)
+    log(f"U-Net train step, batch {U_BATCH}, {SEG_WINDOW}^2, fp32 (no "
+        f"TF32), device-resident: {step_ms:.6f} ms, "
+        f"{U_BATCH / step_ms * 1e3:.1f} patches/s, "
+        f"{flops / (step_ms / 1e3) / FP32_FLOP_PER_S:.4f} of the fp32 rate "
+        f"(convolutions x 3); peak device memory {peak:.3f} GB{tag}")
+    prof = profile_steps(torch, lambda: step(xb, yb), 2, step_ms,
+                         families=E1_FAMILIES, other=SEG_OTHER, tag=tag)
+
+    # validation metrics: card against the port's CPU metrics on the same
+    # logits, and against float64 ranks on the host
+    Xv, yv = model._arrays(valid, "prob")
+    with torch.no_grad():
+        logits = model.net.apply(torch.from_numpy(Xv).to(dev),
+                                 train=False)[:, 0]
+    truth = torch.from_numpy(yv[:, 0] > 0.5)
+    auc_card = roc_auc_score(truth.to(dev), logits)
+    f1_card = f1_score(truth.to(dev), logits > 0.5)
+    auc_cpu = roc_auc_score(truth, logits.cpu())
+    f1_cpu = f1_score(truth, logits.cpu() > 0.5)
+    auc_f64 = f64_roc_auc(truth.numpy().reshape(-1),
+                          logits.cpu().numpy().reshape(-1))
+    d = max(abs(auc_card - auc_cpu), abs(auc_card - auc_f64),
+            abs(f1_card - f1_cpu))
+    log(f"validation metrics on {U_VALID} x {SEG_WINDOW}^2 logits: ROC-AUC "
+        f"card {auc_card:.12f}, CPU {auc_cpu:.12f}, float64 ranks "
+        f"{auc_f64:.12f}; F1 card {f1_card:.12f}, CPU {f1_cpu:.12f}; "
+        f"worst difference {d:.3e} (limit {U_METRIC_TOL:g}){tag}")
+    if d > U_METRIC_TOL:
+        raise AssertionError(f"validation metrics differ by {d:.3e}")
+    return dict(sampler_s=sampler_s, fit_s=fit_s, fit_peak_gb=fit_peak,
+                step_ms=step_ms, step_peak_gb=peak, profile=prof,
+                history=hist, auc=auc_card, f1=f1_card, metric_diff=d,
+                weights=os.path.join(root, "unet_trained"))
+
+
+def unet_step_errors(torch, dev, base, x, y):
+    """One step of the U-Net step check on the batch (x, y): the card's and
+    the CPU's fp32 step, each with float64 replaying its own ReLU and
+    max-pool choices. Returns the losses, the flips of each side against
+    float64's own choices, and per weight the squared error and squared
+    norm of the float64 gradient (card, then CPU), and the card side's
+    float64 gradients."""
+    def run(device, dtype, masks=None, replay=False):
+        net = copy.deepcopy(base.net).to(device=device, dtype=dtype)
+        return unet_step_grads(torch, net, x.to(device, dtype),
+                               y.to(device, dtype), True, masks, replay)
+
+    m_gpu, m_cpu, m_f64 = [], [], []
+    l_gpu, g_gpu = run(dev, torch.float32, masks=m_gpu)
+    l_cpu, g_cpu = run("cpu", torch.float32, masks=m_cpu)
+    run("cpu", torch.float64, masks=m_f64)
+    _, g_f64 = run("cpu", torch.float64, masks=m_gpu, replay=True)
+    _, g_f64c = run("cpu", torch.float64, masks=m_cpu, replay=True)
+    flips = [sum(int((a != b).sum()) for a, b in zip(m, m_f64))
+             for m in (m_gpu, m_cpu)]
+    sq = [{n: (float(torch.sum((g[n] - ref[n]) ** 2)),
+               float(torch.sum(ref[n] ** 2))) for n in g_f64}
+          for g, ref in ((g_gpu, g_f64), (g_cpu, g_f64c))]
+    return dict(loss=(l_gpu, l_cpu), flips=flips, sq=sq, ref=g_f64)
+
+
+def unet_step_vs_cpu(torch, dev, weights, tag):
+    """Fit steps at batch 2 on the trained weights, card against CPU,
+    each held against float64 on its own side of every ReLU and the
+    max-pool (phase 12's rule: card error <= 3 x CPU error + 1e-5 per
+    weight, relative L2), and a TF32 control that must land over it.
+
+    The rule's two errors are each taken over U_STEP_DRAWS steps, each on
+    its own seeded batch (the first is the batch one step alone took): a
+    weight's error is the relative L2 of its gradients stacked over the
+    steps. On trained U-Net weights one step's fp32 error comes from few
+    rounding events, and the card's fp32 activations err up to several
+    times as much as the CPU's in layer4 and the first decoder block, so
+    one step alone can land over the limit with no TF32 anywhere
+    (``tools/unet_step_draws.py`` counts how often, and with ``--layers``
+    shows where)."""
+    from dynamorph_tpu_torch.seg.model import Segment
+
+    base = Segment(input_shape=(2, U_STEP_SIZE, U_STEP_SIZE),
+                   device="cpu")
+    base.load(weights)
+    r = np.random.RandomState(SEED + 15)
+    batches = []
+    for _ in range(U_STEP_DRAWS):
+        x = r.rand(2, 2, U_STEP_SIZE, U_STEP_SIZE).astype(np.float32)
+        lab = r.rand(2, 3, U_STEP_SIZE, U_STEP_SIZE) ** 3
+        lab /= lab.sum(1, keepdims=True)
+        batches.append((torch.from_numpy(x), torch.from_numpy(
+            np.concatenate([lab, np.ones((2, 1, U_STEP_SIZE, U_STEP_SIZE))],
+                           1).astype(np.float32))))
+    draws = [unet_step_errors(torch, dev, base, x, y) for x, y in batches]
+    x, y = batches[0]
+    _, g_ctrl = unet_step_grads(torch, copy.deepcopy(base.net).to(dev),
+                                x.to(dev), y.to(dev), False)
+
+    def pooled(side, ds):
+        return {n: (sum(d["sq"][side][n][0] for d in ds) / max(
+            sum(d["sq"][side][n][1] for d in ds), 1e-300)) ** 0.5
+            for n in ds[0]["sq"][side]}
+
+    def ratio(err, e_cpu):
+        r_ = {n: err[n] / (E1_GRAD_VS_CPU * e_cpu[n] + E1_GRAD_FLOOR)
+              for n in err}
+        worst = max(r_, key=r_.get)
+        return r_[worst], worst
+
+    e_gpu, e_cpu = pooled(0, draws), pooled(1, draws)
+    ref = draws[0]["ref"]
+    e_ctrl = {n: float(torch.norm(g_ctrl[n] - ref[n]) / max(
+        float(torch.norm(ref[n])), 1e-30)) for n in ref}
+    flips = [sum(d["flips"][i] for d in draws) for i in (0, 1)]
+    loss_rel = max(abs(d["loss"][0] - d["loss"][1]) / abs(d["loss"][1])
+                   for d in draws)
+    grad_ratio, worst = ratio(e_gpu, e_cpu)
+    ctrl_ratio, ctrl_worst = ratio(e_ctrl, e_cpu)
+    first, first_worst = ratio(pooled(0, draws[:1]), pooled(1, draws[:1]))
+    log(f"U-Net fit step, batch 2 of {U_STEP_SIZE}^2, trained weights, "
+        f"{U_STEP_DRAWS} seeded batches, card vs CPU: ReLU and "
+        f"max-pool choices against float64's own: card {flips[0]}, CPU "
+        f"{flips[1]} flipped (replayed below); loss {loss_rel:.3e} relative "
+        f"(rtol {STEP_LOSS_RTOL:g}); gradients vs float64 over the steps: "
+        f"worst {worst} at {grad_ratio:.3f} of the limit (card error <= "
+        f"{E1_GRAD_VS_CPU:g} x CPU error + {E1_GRAD_FLOOR:g}, relative L2: "
+        f"card {e_gpu[worst]:.3e}, CPU {e_cpu[worst]:.3e}); the first step "
+        f"alone: worst {first_worst} at {first:.3f}; TF32 control: "
+        f"{ctrl_worst} at "
+        f"{ctrl_ratio:.3f} of the limit{tag}")
+    if loss_rel > STEP_LOSS_RTOL:
+        raise AssertionError(f"U-Net step loss {loss_rel:.3e} relative")
+    if grad_ratio > 1:
+        raise AssertionError(f"U-Net gradient {worst} at {grad_ratio:.3f} "
+                             "of its limit")
+    if not ctrl_ratio > 1:
+        raise AssertionError(f"the U-Net TF32 control step lands at "
+                             f"{ctrl_ratio:.3f} of the limit: the check "
+                             "cannot see TF32")
+    return dict(loss_rel=loss_rel, grad_ratio=grad_ratio,
+                control=ctrl_ratio, flips=flips,
+                first_step=first)
+
+
+def unet_multislice(torch, dev, tag):
+    """SegmentWithMultipleSlice((2, 3, 256, 256)) card vs CPU on 2
+    samples, and one frame of predict_whole_map(time_slices=3) on the
+    card (3 frames of 2 x 512 x 512)."""
+    from dynamorph_tpu_torch.seg.inference import predict_whole_map
+    from dynamorph_tpu_torch.seg.model import SegmentWithMultipleSlice
+
+    kw = dict(unet_feat=U_MS_FEAT, input_shape=(2, 3, SEG_WINDOW,
+                                                SEG_WINDOW), seed=SEED + 16)
+    cpu = SegmentWithMultipleSlice(device="cpu", **kw)
+    card = SegmentWithMultipleSlice(device=dev, **kw)
+    card.net.load_state_dict(cpu.net.state_dict(), strict=True)
+    r = np.random.RandomState(SEED + 16)
+    x = (r.rand(2, 2, 3, SEG_WINDOW, SEG_WINDOW) * 65535).astype(np.float32)
+    pc, pg = cpu.predict_raw(x), card.predict_raw(x)
+    err = float(np.abs(pg - pc).max())
+    stack = (r.rand(3, 2, 1, 2 * SEG_WINDOW, 2 * SEG_WINDOW) * 65535)
+    t0 = time.perf_counter()
+    frames = predict_whole_map(stack, card, n_supp=1, time_slices=3,
+                               rng=np.random.RandomState(0))
+    wm_s = time.perf_counter() - t0
+    assert frames.shape == (1, 3, 1, 2 * SEG_WINDOW, 2 * SEG_WINDOW)
+    assert np.isfinite(frames).all() and not (frames == -1).any()
+    sums = float(np.abs(frames.sum(1) - 1).max())
+    log(f"SegmentWithMultipleSlice (2 channels x 3 slices, unet_feat "
+        f"{U_MS_FEAT}): 2 samples card vs CPU max |d prob| {err:.3e} "
+        f"(limit {SEG_PROB_ATOL:g}); predict_whole_map(time_slices=3) of "
+        f"3 frames of {2 * SEG_WINDOW}^2 -> 1 frame on the card in "
+        f"{wm_s:.3f} s, class sums within {sums:.1e} of 1{tag}")
+    if err > SEG_PROB_ATOL or sums > SEG_SUM_ATOL:
+        raise AssertionError(f"multi-slice: card vs CPU {err:.3e}, sums "
+                             f"{sums:.3e}")
+    return dict(err=err, whole_map_s=wm_s)
+
+
+def unet_extraction_site(rng, root):
+    """A 2048 x 2048 site of one frame, 2 channels: U_CELLS ellipses (axes
+    10-26 px, seeded angles; overlaps keep the first label), its
+    probabilities and instance pickles; returns (supp dirs, paths)."""
+    from dynamorph_tpu_torch.io.pickles import save_pickle
+
+    size = U_FRAME
+    img = rng.rand(1, 2, 1, size, size) * 1000 + 30000
+    labels = np.full((size, size), -1, np.int32)
+    centres = rng.randint(30, size - 30, (U_CELLS, 2))
+    for cid, (cy, cx) in enumerate(centres):
+        y0, x0 = max(cy - 30, 0), max(cx - 30, 0)
+        yy, xx = np.mgrid[y0:cy + 30, x0:cx + 30]
+        t = rng.rand() * np.pi
+        a, b = rng.uniform(14, 26), rng.uniform(8, 14)
+        u = (yy - cy) * np.cos(t) + (xx - cx) * np.sin(t)
+        v = -(yy - cy) * np.sin(t) + (xx - cx) * np.cos(t)
+        m = ((u / a) ** 2 + (v / b) ** 2 < 1) & (labels[y0:cy + 30,
+                                                        x0:cx + 30] < 0)
+        labels[y0:cy + 30, x0:cx + 30][m] = cid
+    fg = labels >= 0
+    img[0, 0, 0][fg] += 10000
+    bg = np.where(fg, 0.05, 0.97)
+    seg = np.stack([bg, np.where(fg, 0.9, 0.02),
+                    1 - bg - np.where(fg, 0.9, 0.02)])[None, :, None]
+    raw_path = os.path.join(root, "axis_site.npy")
+    seg_path = os.path.join(root, "axis_site_NNProbabilities.npy")
+    np.save(raw_path, img)
+    np.save(seg_path, seg)
+    pix = np.argwhere(fg)
+    kept = [c for c in range(U_CELLS) if (labels == c).any()]
+    positions = [(np.int32(c), centres[c]) for c in kept]
+    assignments = {0: (pix, labels[fg])}
+    dirs = {}
+    # the card extracts every cell; the warm-up and the CPU the first
+    # U_CPU_CELLS (each cell's patch reads its own window alone)
+    for side, cells in (("card", positions),
+                        ("warm", positions[:U_CPU_CELLS]),
+                        ("cpu", positions[:U_CPU_CELLS])):
+        d = os.path.join(root, f"axis_{side}")
+        os.makedirs(d, exist_ok=True)
+        save_pickle({0: cells}, os.path.join(d, "cell_positions.pkl"))
+        save_pickle(assignments, os.path.join(d,
+                                              "cell_pixel_assignments.pkl"))
+        dirs[side] = d
+    return dirs, raw_path, seg_path, len(kept), img, labels
+
+
+def unet_geometry_part(torch, dev, root, tag):
+    """The long-axis extraction card vs CPU (cells/s), warp_affine card vs
+    CPU at four dtypes with the warps' share of the extraction, and the
+    host outputs (validation contours, TIFF, trajectory GIF)."""
+    from dynamorph_tpu_torch.io.pickles import load_pickle
+    from dynamorph_tpu_torch.io.png import write_png
+    from dynamorph_tpu_torch.ops.geometry import rotation_matrix_2d, \
+        warp_affine
+    from dynamorph_tpu_torch.pipeline.patch import \
+        process_site_extract_patches_align_axis
+    from dynamorph_tpu_torch.pipeline.segmentation import (
+        segmentation_validation_contours, validation_pngs_to_tiff)
+    from dynamorph_tpu_torch.track.visualize import save_traj_bbox
+
+    rng = np.random.RandomState(SEED + 17)
+    dirs, raw_path, seg_path, n_cells, img, labels = \
+        unet_extraction_site(rng, root)
+    # a warm-up call on the card, then the timed one
+    process_site_extract_patches_align_axis(
+        raw_path, seg_path, dirs["warm"], window_size=SEG_WINDOW, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    process_site_extract_patches_align_axis(
+        raw_path, seg_path, dirs["card"], window_size=SEG_WINDOW, device=dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    process_site_extract_patches_align_axis(
+        raw_path, seg_path, dirs["cpu"], window_size=SEG_WINDOW,
+        device="cpu")
+    cpu_s = time.perf_counter() - t0
+    got = load_pickle(os.path.join(dirs["card"], "stacks_rotated_0.pkl"))
+    want = load_pickle(os.path.join(dirs["cpu"], "stacks_rotated_0.pkl"))
+    assert len(got) == n_cells and len(want) == U_CPU_CELLS
+    got = {os.path.basename(k): v for k, v in got.items()}
+    mask_diff = win_diff = 0
+    for kw in want:
+        for field in ("mat", "masked_mat"):
+            a, b = got[os.path.basename(kw)][field], want[kw][field]
+            assert a.shape == (4, 1, SEG_WINDOW, SEG_WINDOW)
+            mask_diff += int((a[2:] != b[2:]).sum())
+            win_diff += int((a[:2] != b[:2]).sum())
+    log(f"long-axis extraction of a {U_FRAME}^2 site, {n_cells} cells "
+        f"(enlarged window {int(np.ceil(SEG_WINDOW * np.sqrt(2)) + 1)}): "
+        f"card {card_s:.3f} s ({n_cells / card_s:.1f} cells/s), CPU "
+        f"{cpu_s:.3f} s for {U_CPU_CELLS} ({U_CPU_CELLS / cpu_s:.1f} "
+        f"cells/s); card vs CPU on those: "
+        f"{mask_diff} mask pixels and {win_diff} uint16 window pixels "
+        f"differ{tag}")
+    if mask_diff or win_diff:
+        raise AssertionError(f"long-axis extraction card vs CPU: masks "
+                             f"{mask_diff}, windows {win_diff} differ")
+
+    # the batched warp at four dtypes, card vs CPU, and its cost at the
+    # extraction's shapes against the extraction around it
+    w = int(np.ceil(SEG_WINDOW * np.sqrt(2)) + 1)
+    n = n_cells
+    Ms = np.stack([rotation_matrix_2d((w / 2, w / 2), a, 1)
+                   for a in rng.uniform(-90, 0, n)])
+    warp_err = {}
+    k = min(32, n)
+    for dt, cn in ((torch.float64, 2), (torch.float32, 2),
+                   (torch.float32, 1), (torch.uint16, 2), (torch.uint16, 1),
+                   (torch.uint8, 1)):
+        src = torch.from_numpy(rng.rand(k, w, w, cn) * 250).to(dt)
+        a = warp_affine(src.to(dev), Ms[:k], (w, w)).cpu()
+        b = warp_affine(src, Ms[:k], (w, w))
+        warp_err[f"{str(dt).split('.')[-1]} x{cn}"] = int((a != b).sum())
+    masks = torch.zeros((2 * n, w, w, 1), dtype=torch.uint8, device=dev)
+    wins = torch.zeros((2 * n, w, w, 2), dtype=torch.uint16, device=dev)
+    M2 = np.concatenate([Ms, Ms])
+    warp_ms = time_cuda(torch, lambda: warp_affine([masks, wins], M2,
+                                                   (w, w)), 3)
+    log(f"warp_affine card vs CPU ({k} images of {w}^2, both arithmetics):"
+        f" differing values "
+        + ", ".join(f"{k} {v}" for k, v in warp_err.items())
+        + f"; the extraction's batched warp ({2 * n} uint8 masks + {2 * n} "
+        f"2-channel uint16 windows) {warp_ms:.3f} ms on the card, "
+        f"{warp_ms / 1e3 / card_s:.4f} of the site's extraction{tag}")
+    if any(warp_err.values()):
+        raise AssertionError(f"warp_affine card vs CPU: {warp_err}")
+    del masks, wins
+
+    # host outputs: the validation overlays at 1108^2, their TIFF, a GIF
+    from dynamorph_tpu_torch.io.sites import site_supp_folder
+
+    raw_dir = os.path.join(root, "val_raw")
+    supp_dir = os.path.join(root, "val_supp")
+    os.makedirs(raw_dir, exist_ok=True)
+    site = "B5-Site_0"
+    stack = np.concatenate([img, img[:, ::-1]]).astype(np.float64)
+    np.save(os.path.join(raw_dir, f"{site}.npy"), stack)
+    seg_dir = site_supp_folder(supp_dir, site)
+    os.makedirs(seg_dir, exist_ok=True)
+    colors = rng.randint(40, 256, (U_CELLS + 1, 3)).astype(np.uint8)
+    colors[0] = 0
+    for t in range(2):
+        write_png(os.path.join(seg_dir, f"segmentation_{t}.png"),
+                  colors[labels + 1])
+    val_dir = os.path.join(root, "val_out")
+    t0 = time.perf_counter()
+    segmentation_validation_contours(raw_dir, supp_dir, val_dir, [site],
+                                     out_size=U_VAL_SIZE)
+    contours_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tif = validation_pngs_to_tiff(val_dir, site)
+    tiff_s = time.perf_counter() - t0
+    assert os.path.getsize(tif) > 2 * U_VAL_SIZE[0] * U_VAL_SIZE[1] * 6
+    gif = os.path.join(root, "traj.gif")
+    frames = np.moveaxis(stack[:, :, 0], 1, -1).astype(np.uint16)
+    t0 = time.perf_counter()
+    save_traj_bbox({0: 1, 1: 1}, {0: np.array([700, 900]),
+                                  1: np.array([720, 910])}, frames, gif)
+    gif_s = time.perf_counter() - t0
+    log(f"host outputs: segmentation_validation_contours (2 frames of "
+        f"{U_FRAME}^2 -> {U_VAL_SIZE[0]}^2 overlays) {contours_s:.3f} s, "
+        f"validation_pngs_to_tiff {tiff_s:.3f} s, save_traj_bbox (2 frames"
+        f" -> 512^2 GIF) {gif_s:.3f} s")
+    return dict(n_cells=n_cells, card_s=card_s,
+                cpu_cells_per_s=U_CPU_CELLS / cpu_s,
+                cells_per_s=n_cells / card_s, warp_ms=warp_ms,
+                warp_share=warp_ms / 1e3 / card_s, contours_s=contours_s,
+                tiff_s=tiff_s, gif_s=gif_s)
+
+
+def phase_unet_geometry(torch, vq, root, dev, card):
+    phase("14. U-Net training and geometry: generate_patches, Segment.fit "
+          "(batch 8, 256^2), the step card vs CPU, SegmentWithMultipleSlice,"
+          " the long-axis extraction, warp_affine, validation contours and "
+          "GIFs, on cuda")
+    tag = f" [{card}]"
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    vq.vq_lookup.launches = vq.vq_indices.launches = 0
+    parts = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t0
+        return out
+
+    train = timed("training", unet_train_part, torch, dev, root, tag)
+    step = timed("step_check", unet_step_vs_cpu, torch, dev,
+                 train["weights"], tag)
+    multi = timed("multislice", unet_multislice, torch, dev, tag)
+    geo = timed("geometry", unet_geometry_part, torch, dev, root, tag)
+    launches = {"vq_lookup": vq.vq_lookup.launches,
+                "vq_indices": vq.vq_indices.launches}
+    if any(launches.values()):
+        raise AssertionError(f"a VQ kernel launched on the U-Net path: "
+                             f"{launches}")
+    secs = time.perf_counter() - t_phase
+    log(f"phase 14 took {secs:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
+    return dict(train=train, step=step, multi=multi, geo=geo, secs=secs,
+                launches=launches)
+
+
 def main() -> int:
     # one card: the first of those visible, so device_count() is what the
     # run uses (set before torch initialises CUDA)
@@ -4184,6 +4732,7 @@ def main() -> int:
             torch, vq, root, dev, smi,
             dict(raw=os.path.join(root, "raw"), data=main_run["data"]))
         after = phase_after_latents(torch, vq, root, dev, smi, main_run)
+        unet = phase_unet_geometry(torch, vq, root, dev, smi)
 
     z16 = timed["z16 encode"]
     ti = train_timed["indices"]
@@ -4214,6 +4763,7 @@ def main() -> int:
         "launches_other_encoders_path": sum(
             r["launches"]["vq_lookup"] for r in other.values()),
         "launches_after_latents_path": after["launches"]["vq_lookup"],
+        "launches_unet_training_path": unet["launches"]["vq_lookup"],
         "z32": {k: timed["z32 encode"][k] for k in
                 ("ms", "ms_per_call", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "bound_share", "rowwise_ms")},
@@ -4246,6 +4796,7 @@ def main() -> int:
         "launches_other_encoders_path": sum(
             r["launches"]["vq_indices"] for r in other.values()),
         "launches_after_latents_path": after["launches"]["vq_indices"],
+        "launches_unet_training_path": unet["launches"]["vq_indices"],
         "flips_vs_plain": {k: indices[k]["flips"] for k in indices},
         "flip_rate_vs_f64": {k: indices[k]["f64_rate"] for k in indices},
     }]
@@ -4284,7 +4835,12 @@ def main() -> int:
         f"{N_PATCHES} patches {after['recon']['wall']:.3f} s "
         f"({after['recon']['launches']} vq_lookup launches), plate cPCA "
         f"fit {after['cpca']['fit_s']:.3f} s, phase 13 "
-        f"{after['secs']:.1f} s; whole script "
+        f"{after['secs']:.1f} s; U-Net fit step at batch {U_BATCH} "
+        f"{unet['train']['step_ms']:.3f} ms, fit {unet['train']['fit_s']:.3f}"
+        f" s, step check at {unet['step']['grad_ratio']:.3f} of its limit "
+        f"(TF32 control {unet['step']['control']:.3f}), long-axis "
+        f"extraction {unet['geo']['cells_per_s']:.1f} cells/s, phase 14 "
+        f"{unet['secs']:.1f} s; whole script "
         f"{time.perf_counter() - t_start:.1f} s [{smi}]")
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())

@@ -48,6 +48,10 @@ class SegmentationInferenceConfig:
     # dynamorph_tpu extension: "tiled" = reference-parity offset ensemble,
     # "direct" = single whole-frame pass (faster, no tile-edge artifacts)
     inference_mode: str = "tiled"
+    # port extension: frames a prediction sees (> 1 builds a
+    # SegmentWithMultipleSlice of that many slices and unet_feat features)
+    time_slices: int = 1
+    unet_feat: int = 32
 
 
 @dataclasses.dataclass

@@ -131,7 +131,9 @@ def _discriminator(out: Dict, p, s) -> None:
 
 
 def _unet(params, state) -> Dict[str, torch.Tensor]:
-    """``dynamorph_tpu/models/unet.py`` -> ``models/unet.py`` names."""
+    """``dynamorph_tpu/models/unet.py`` -> ``models/unet.py`` names; with
+    the 1x1 heads of ``SegmentWithMultipleSlice`` (``post_conv``,
+    ``pred_head``) where the params hold them (``MultiSliceUNet``)."""
     out: Dict[str, torch.Tensor] = {}
     _conv(out, "pre_conv", params["pre_conv"])
     _resnet_trunk(out, "encoder.", params, state)
@@ -141,6 +143,9 @@ def _unet(params, state) -> Dict[str, torch.Tensor]:
             _bn(out, f"decoder.blocks.{i}.conv{k}.1", p[f"bn{k}"],
                 s[f"bn{k}"])
     _conv(out, "segmentation_head.0", params["head"])
+    for head in ("post_conv", "pred_head"):
+        if head in params:
+            _conv(out, head, params[head])
     return out
 
 

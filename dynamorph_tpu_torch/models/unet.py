@@ -15,9 +15,18 @@ Parameter names follow ``segmentation_models_pytorch``'s
 package: the names are its public layout, and the JAX weights cross through
 ``models.jax_import.state_dict_from_jax(..., network="UNet")``.
 
-Only inference is ported: the module ends its ``__init__`` in eval mode,
-so batch norm uses the running statistics, ``(x - mean) / sqrt(var + 1e-5)
-* weight + bias`` as ``dynamorph_tpu/nn/functional.py:175-179``.
+``apply(x, train)`` decides how batch norm runs, whatever the module's
+own mode (``models.common.batch_stats``): with ``train=False`` it uses the
+running statistics, ``(x - mean) / sqrt(var + 1e-5) * weight + bias`` as
+``dynamorph_tpu/nn/functional.py:175-179``; with ``train=True`` torch's
+batch norm is the JAX package's (:146-180): biased batch statistics for
+the output, the unbiased variance folded into the running one, momentum
+0.1. The JAX package takes the batch statistics in one pass shifted by the
+running mean and torch in two, which moves them by about 1e-6.
+
+``MultiSliceUNet`` is the 2.5-D body of ``SegmentWithMultipleSlice``
+(``dynamorph_tpu/seg/model.py:339-417``) and ``weighted_ce_loss`` the
+training loss (``dynamorph_tpu/models/unet.py:186-198``).
 """
 from __future__ import annotations
 
@@ -26,6 +35,8 @@ from typing import Sequence
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from .common import batch_stats
 
 # ResNet34 stages: (n_blocks, channels)
 _STAGES = ((3, 64), (4, 128), (6, 256), (3, 512))
@@ -141,3 +152,46 @@ class UNet(nn.Module):
                                skips[::-1] + [None]):
             h = block(h, skip)
         return self.segmentation_head(h)
+
+    def apply(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """Logits, with batch norm on the batch's statistics (and the
+        running ones updated) when ``train``, else on the running ones."""
+        with batch_stats(self, train):
+            return self(x)
+
+
+class MultiSliceUNet(UNet):
+    """The U-Net over each slice of a (B, C, Z, X, Y) input at
+    ``n_classes=unet_feat`` (SplitSlice), its features merged back to
+    (B, Z * unet_feat, X, Y) (MergeSlices), then ``post_conv`` (1x1 + ReLU)
+    and ``pred_head`` (1x1) -> (B, n_classes, X, Y) logits (reference
+    NNsegmentation/models.py:206-258)."""
+
+    def __init__(self, n_channels: int = 2, n_slices: int = 5,
+                 n_classes: int = 3, unet_feat: int = 32,
+                 decoder_filters: Sequence[int] = (256, 128, 64, 32, 16)):
+        super().__init__(n_channels, unet_feat, decoder_filters)
+        self.unet_feat = unet_feat
+        self.post_conv = nn.Conv2d(n_slices * unet_feat, unet_feat, 1)
+        self.pred_head = nn.Conv2d(unet_feat, n_classes, 1)
+        self.n_classes = n_classes
+        self.eval()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, z, xs, ys = x.shape
+        feats = super().forward(x.transpose(1, 2).reshape(b * z, c, xs, ys))
+        merged = feats.reshape(b, z * self.unet_feat, xs, ys)
+        return self.pred_head(F.relu(self.post_conv(merged)))
+
+
+def weighted_ce_loss(logits: torch.Tensor,
+                     labels_with_weight: torch.Tensor) -> torch.Tensor:
+    """Weighted per-pixel softmax cross-entropy on logits, averaged over
+    the batch's pixels (reference NNsegmentation/layers.py:89-115).
+
+    ``labels_with_weight``: (B, n_classes + 1, H, W), the (possibly soft)
+    labels then the per-pixel weight."""
+    w = labels_with_weight[:, -1]
+    y = labels_with_weight[:, :-1]
+    ce = -torch.sum(y * torch.log_softmax(logits, dim=1), dim=1)
+    return torch.mean(ce * w)

@@ -3,7 +3,10 @@
 - ``grid_dbscan.cpp``: exact occupancy-grid DBSCAN over integer pixel
   coordinates (instance segmentation), labels identical to sklearn's;
 - ``lap.cpp``: dense Jonker-Volgenant LAP solver (tracking, large
-  instances).
+  instances);
+- ``tiff_lzw.cpp``: the TIFF reader's LZW decoder;
+- ``contours.cpp``: cv2's contour tracing and minimum-area rectangle
+  (long-axis extraction, morphology).
 
 Each source compiles into ``build/native/lib<name>-<hash>.so`` at the root
 of the checkout (git-ignored); the hash covers the source and the flags, so

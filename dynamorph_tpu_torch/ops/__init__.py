@@ -1,2 +1,4 @@
-"""Ops with a hand-written CUDA kernel (``csrc/``) and a plain PyTorch
-version beside each."""
+"""Device ops: ``vq.py`` with its hand-written CUDA kernels (``csrc/``) and a
+plain PyTorch version beside each; ``patch.py`` (the per-frame patch
+program) and ``geometry.py`` (cv2's warp, resize and flip) in plain
+PyTorch, no kernel of their own."""

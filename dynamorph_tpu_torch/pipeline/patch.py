@@ -30,6 +30,8 @@ from ..io.compact import load_stack_any, resolve_any, save_stack, storage_path
 from ..io.pickles import load_pickle, save_pickle
 from ..io.prefetch import AsyncWriter
 from ..io.sites import site_supp_folder
+from ..native.contours import contour_area, find_contours, min_area_rect
+from ..ops.geometry import rotation_matrix_2d, warp_affine
 from ..ops.patch import extract_cell_patches, labels_to_map, median_background
 from ..track.clustering import (check_segmentation_dim,
                                 process_site_instance_segmentation)
@@ -220,6 +222,102 @@ def save_single_cell_im(output_mat, masked_output_mat, tm, tm2,
         a.axis("off")
         a.set_title(name, fontsize=12)
     fig.savefig(im_path, dpi=300, bbox_inches="tight")
+
+
+def get_cell_rect_angle(tm: np.ndarray) -> float:
+    """Rotation angle (degrees) of a cell's long axis from the minimum-area
+    rectangle of its largest contour (reference extract_patches.py:353-370),
+    through ``native/contours`` in place of cv2."""
+    contours = find_contours(np.asarray(tm).astype("uint8"))
+    areas = [contour_area(c) for c in contours]
+    (_, _), (w, h), ang = min_area_rect(contours[int(np.argmax(areas))])
+    if w < h:
+        ang = ang - 90
+    return ang
+
+
+def process_site_extract_patches_align_axis(
+        site_path: str, site_segmentation_path: str,
+        site_supp_files_folder: str, window_size: int = 256,
+        channels: Optional[Sequence[int]] = None, save_fig: bool = False,
+        skip_boundary: bool = False, device: Device = "cuda") -> None:
+    """Long-axis-aligned patch extraction (reference extract_patches.py:
+    373-492), per frame: each kept cell's enlarged window
+    (``ceil(window * sqrt(2)) + 1``) from the device program of
+    ``ops/patch.py``, the angle of its long axis on the host
+    (``get_cell_rect_angle``), then one batched ``ops.geometry.warp_affine``
+    on the device for every cell's four warps (the two masks as uint8, the
+    raw and masked windows as uint16, cv2's arithmetics for those dtypes),
+    and the central ``window`` crop. Saves ``stacks_rotated_<t>.pkl`` as
+    the JAX package does."""
+    dev = resolve_device(device)
+    output_window_size = window_size
+    window_size = int(np.ceil(window_size * np.sqrt(2)) + 1)
+    image_stack = np.load(site_path)
+    if channels is not None:
+        image_stack = image_stack[:, np.asarray(channels)]
+    segmentation_stack = np.load(site_segmentation_path)
+    cell_positions = load_pickle(
+        os.path.join(site_supp_files_folder, "cell_positions.pkl"))
+    cell_pixel_assignments = load_pickle(
+        os.path.join(site_supp_files_folder, "cell_pixel_assignments.pkl"))
+
+    n_frames, _, _, x_size, y_size = image_stack.shape
+    lo = window_size // 2 - output_window_size // 2
+    hi = window_size // 2 + output_window_size // 2
+    centre = (window_size / 2, window_size / 2)
+    for t_point in range(n_frames):
+        site_data: Dict[str, dict] = {}
+        cell_segmentation = check_segmentation_dim(
+            segmentation_stack[t_point])
+        positions, positions_labels = cell_pixel_assignments[t_point]
+        kept_cells = filter_boundary_cells(
+            cell_positions[t_point], window_size // 2, x_size, y_size,
+            skip_boundary)
+        if kept_cells:
+            raw = torch.from_numpy(
+                image_stack[t_point, :, 0].astype(np.float32)).to(dev)
+            bg_fill = median_background(raw, torch.from_numpy(
+                cell_segmentation[0, 0].astype(np.float32)).to(dev))
+            labels = labels_to_map((x_size, y_size), positions,
+                                   positions_labels)
+            out = dispatch_cell_patches(raw, labels, bg_fill, kept_cells,
+                                        window_size=window_size, device=dev)
+            tm_host = out["tm"].cpu().numpy()
+            rot = np.stack([rotation_matrix_2d(
+                centre, get_cell_rect_angle(tm), 1) for tm in tm_host])
+            masks = torch.cat([out["tm"], out["tm2"]])[..., None]
+            # float32 -> uint16 truncates, as numpy's astype does
+            wins = torch.cat([out["mat"], out["masked_mat"]]) \
+                .permute(0, 2, 3, 1).to(torch.uint16)
+            masks, wins = warp_affine([masks, wins], np.concatenate([rot,
+                                                                     rot]),
+                                      (window_size, window_size))
+            n = len(kept_cells)
+            crop = (slice(None), slice(lo, hi), slice(lo, hi))
+            masks = masks[crop][..., 0].cpu().numpy()
+            wins = wins[crop].permute(0, 3, 1, 2).cpu().numpy()
+            for i, (cid, _) in enumerate(kept_cells):
+                cell_name = os.path.join(site_supp_files_folder,
+                                         "%d_%d.h5" % (t_point, cid))
+                tm_c = masks[i][None, None]
+                tm2_c = masks[n + i][None, None]
+                mat_c, masked_c = wins[i][:, None], wins[n + i][:, None]
+                site_data[cell_name] = {
+                    "mat": np.concatenate([mat_c, tm_c, tm2_c],
+                                          0).astype("float64"),
+                    "masked_mat": np.concatenate([masked_c, tm_c, tm2_c],
+                                                 0).astype("float64"),
+                }
+                if save_fig:
+                    save_single_cell_im(
+                        mat_c[:, 0], masked_c[:, 0], tm_c[0, 0],
+                        tm2_c[0, 0], os.path.join(
+                            site_supp_files_folder,
+                            "patch_rotated_t%d_id%d.jpg" % (t_point, cid)))
+        save_pickle(site_data,
+                    os.path.join(site_supp_files_folder,
+                                 "stacks_rotated_%d.pkl" % t_point))
 
 
 def process_site_build_trajectory(site_supp_files_folder: str,

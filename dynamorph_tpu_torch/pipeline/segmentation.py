@@ -5,7 +5,10 @@ pipeline/segmentation.py:13-87).
 For each site, ``<raw>/<site>.npy`` goes through the U-Net on the card and
 ``<site>_NNProbabilities.npy``, ``<site>.png`` and ``<site>_NNpred.png`` are
 written beside it. ``segmentation_validation`` draws the clustered cells'
-rims onto the raw frames (host work).
+rims onto the raw frames, and ``segmentation_validation_contours`` /
+``validation_pngs_to_tiff`` the edges of the instance maps onto resized
+frames (host work; PNGs through ``io/png.py``, the uint8 resize of
+``ops/geometry.py``).
 """
 from __future__ import annotations
 
@@ -18,10 +21,12 @@ import torch
 
 from ..core.profiling import stage_timer
 from ..io.pickles import load_pickle
+from ..io.png import read_png, write_png
 from ..io.sites import site_supp_folder
 from ..io.tiff import write_multipage_tiff
+from ..ops.geometry import resize
 from ..seg.inference import predict_whole_map
-from ..seg.model import Segment
+from ..seg.model import Segment, SegmentWithMultipleSlice
 
 log = logging.getLogger(__name__)
 
@@ -41,9 +46,16 @@ def segmentation(raw_folder: str, supp_folder: str, val_folder: str,
     if si.network != "UNet":
         raise NotImplementedError(
             f"segmentation model {si.network} not implemented")
-    model = Segment(input_shape=(len(si.channels), si.window_size,
-                                 si.window_size),
-                    n_classes=si.num_classes, device=device)
+    if si.time_slices > 1:
+        model = SegmentWithMultipleSlice(
+            unet_feat=si.unet_feat,
+            input_shape=(len(si.channels), si.time_slices, si.window_size,
+                         si.window_size),
+            n_classes=si.num_classes, device=device)
+    else:
+        model = Segment(input_shape=(len(si.channels), si.window_size,
+                                     si.window_size),
+                        n_classes=si.num_classes, device=device)
     if not si.weights:
         raise ValueError("segmentation weights path must be provided")
     try:
@@ -63,7 +75,8 @@ def segmentation(raw_folder: str, supp_folder: str, val_folder: str,
                 predict_whole_map(
                     site_path, model,
                     use_channels=np.array(si.channels).astype(int),
-                    n_supp=si.num_pred_rnd, mode=si.inference_mode)
+                    n_supp=si.num_pred_rnd, mode=si.inference_mode,
+                    time_slices=si.time_slices)
         except Exception:  # per-site failure tolerance (reference :76-86)
             log.exception("Error in predicting site %s", site)
 
@@ -153,3 +166,94 @@ def _append_segmentation(positions, inds, cell_id, nn_stack, t_point, mat):
     else:
         mat[(rim[:, 0], rim[:, 1])] = np.array([65535, 0, 0]).reshape((1, 3))
     return mat
+
+
+def draw_contour_overlay(phase: np.ndarray, seg: np.ndarray,
+                         threshold: float = 30.0,
+                         color=(255, 0, 0)) -> np.ndarray:
+    """Paint the edges of a segmentation map onto a grayscale frame in
+    ``color`` (reference segmentation_validation.py:20-34, :57-63): ``seg``
+    thresholded at ``threshold``, an edge pixel a mask pixel with an
+    off-mask pixel among its 8 neighbours. Returns (H, W, 3) uint8 RGB."""
+    mask = np.asarray(seg) > threshold
+    interior = np.ones_like(mask)
+    for dr in (-1, 0, 1):
+        for dc in (-1, 0, 1):
+            if dr == 0 and dc == 0:
+                continue
+            shifted = np.zeros_like(mask)
+            rs = slice(max(dr, 0), mask.shape[0] + min(dr, 0))
+            rd = slice(max(-dr, 0), mask.shape[0] + min(-dr, 0))
+            cs = slice(max(dc, 0), mask.shape[1] + min(dc, 0))
+            cd = slice(max(-dc, 0), mask.shape[1] + min(-dc, 0))
+            shifted[rd, cd] = mask[rs, cs]
+            interior &= shifted
+    edges = mask & ~interior
+    phase = np.asarray(phase)
+    if phase.ndim == 2:
+        if phase.dtype == np.uint8:
+            rgb = np.stack([phase] * 3, axis=2)
+        else:
+            # min-max scale to [0, 255]: float frames may be z-scored
+            lo, hi = float(phase.min()), float(phase.max())
+            scaled = np.clip((phase - lo) / max(hi - lo, 1e-12) * 255,
+                             0, 255)
+            rgb = np.stack([scaled] * 3, axis=2).astype(np.uint8)
+    else:
+        rgb = np.clip(phase, 0, 255).astype(np.uint8).copy()
+    rgb[edges] = np.asarray(color, np.uint8)
+    return rgb
+
+
+def segmentation_validation_contours(raw_folder: str, supp_folder: str,
+                                     val_folder: str, sites: Sequence[str],
+                                     out_size=(1108, 1108)) -> None:
+    """Per-frame contour-overlay PNGs: each ``segmentation_<t>.png``
+    instance map's edges drawn onto the min-max scaled phase frame, both
+    resized to ``out_size`` (the frame bilinear, the map nearest), as
+    ``<val_folder>/<site>_<t>.png`` (reference
+    segmentation_validation.py:196-233). A frame without its map is
+    skipped with a warning."""
+    os.makedirs(val_folder, exist_ok=True)
+    for site in sites:
+        raw_stack = np.load(os.path.join(raw_folder, f"{site}.npy"))
+        seg_dir = site_supp_folder(supp_folder, site)
+        log.info("building full frame validation for %s", site)
+        for t_point in range(len(raw_stack)):
+            seg_path = os.path.join(seg_dir, f"segmentation_{t_point}.png")
+            if not os.path.exists(seg_path):
+                log.warning("missing %s; skipping frame", seg_path)
+                continue
+            seg = read_png(seg_path, "gray")
+            phase = raw_stack[t_point, 0, 0] if raw_stack.ndim == 5 \
+                else raw_stack[t_point, :, :, 0]
+            lo, hi = float(phase.min()), float(phase.max())
+            phase8 = (np.clip((phase - lo) / max(hi - lo, 1e-12), 0, 1)
+                      * 255).astype(np.uint8)
+            if out_size:
+                phase8 = resize(phase8, tuple(out_size), "linear")
+                seg = resize(seg, tuple(out_size), "nearest")
+            overlay = draw_contour_overlay(phase8, seg)
+            write_png(os.path.join(val_folder, f"{site}_{t_point}.png"),
+                      overlay[:, :, ::-1])           # RGB -> BGR
+
+
+def validation_pngs_to_tiff(val_folder: str, site: str,
+                            out_path: str = None) -> str:
+    """Stack a site's per-frame validation PNGs, in frame order, into one
+    multipage uint16 RGB TIFF (x 257), ``<site>_composite.tif`` by default
+    (reference segmentation_validation.py:235-264)."""
+    import re
+
+    pat = re.compile(rf"^{re.escape(site)}_(\d+)\.png$")
+    matched = sorted(
+        (int(m.group(1)), f) for f in os.listdir(val_folder)
+        if (m := pat.match(f)))
+    if not matched:
+        raise ValueError(f"no validation PNGs for site {site} in {val_folder}")
+    frames = [read_png(os.path.join(val_folder, f), "color")[:, :, ::-1]
+              for _, f in matched]
+    stack = np.stack(frames, 0).astype(np.uint16) * 257
+    out_path = out_path or os.path.join(val_folder, f"{site}_composite.tif")
+    write_multipage_tiff(out_path, stack)
+    return out_path

@@ -63,8 +63,10 @@ def predict_whole_map(file_path, model, use_channels: Sequence[int] = (),
         use_channels: channel indices for prediction (all if empty).
         out_file_path: output path; default <input>_NNProbabilities.npy.
         n_supp: number of random-offset supplementary passes.
-        time_slices: 1; more serve ``SegmentWithMultipleSlice``, which is
-            not ported yet.
+        time_slices: frames a prediction sees; more than 1 needs a
+            ``SegmentWithMultipleSlice`` of as many slices, and gives
+            ``T - time_slices + 1`` frames, each predicted from itself and
+            the ones after it (tiled mode only).
         rng: np.random-like generator of the offsets; the global
             ``np.random`` when None, as the reference (data.py:440-441) and
             the JAX package use it, so one numpy seed gives both packages
@@ -76,13 +78,17 @@ def predict_whole_map(file_path, model, use_channels: Sequence[int] = (),
     input; for a path it writes them, ``<input>.png`` and
     ``<input>_NNpred.png`` and returns None.
     """
-    if time_slices != 1:
-        raise NotImplementedError(
-            "time_slices > 1 serves SegmentWithMultipleSlice, which is not "
-            "ported yet (ROADMAP slice C, SegmentWithMultipleSlice); use "
-            "dynamorph_tpu.seg.inference for it")
     if mode not in ("tiled", "direct"):
         raise ValueError(f"unknown inference mode {mode!r}")
+    if time_slices != 1:
+        if len(model.input_shape) != 4 or \
+                model.input_shape[1] != time_slices:
+            raise ValueError(
+                f"time_slices={time_slices} needs a SegmentWithMultipleSlice "
+                f"of input_shape (c, {time_slices}, x, y); this model takes "
+                f"{model.input_shape}")
+        if mode != "tiled":
+            raise ValueError("time_slices > 1 runs in the tiled mode only")
     if rng is None:
         rng = np.random
     inputs = load_input(file_path) if isinstance(file_path, str) else file_path
@@ -107,11 +113,15 @@ def predict_whole_map(file_path, model, use_channels: Sequence[int] = (),
     rows, cols = x_full // x_size, y_full // y_size
 
     total_outputs = []
-    for t in range(n_frame):
-        inp = inputs[t]
+    for t in range(n_frame - (time_slices - 1)):
+        inp = inputs[t:t + time_slices]
 
         def tile_at(x0, y0):
-            return inp[:, 0, x0:x0 + x_size, y0:y0 + y_size]
+            patch = inp[..., x0:x0 + x_size, y0:y0 + y_size]
+            if time_slices == 1:
+                return patch[0, :, 0]
+            # (T, C, 1, x, y) -> (C, T, x, y): the time slices on z
+            return patch[:, :, 0].transpose(1, 0, 2, 3)
 
         # base tiling pass
         tiles = np.stack([tile_at(r * x_size, c * y_size)

@@ -365,3 +365,150 @@ def test_convert_storage_delete_source_matches_jax(tmp_path):
     assert left == sorted(os.listdir(trees["theirs"]))
     assert "C5_latent_space.pkl" not in left and "D5_latent_space.pkl" in left
     assert "C5_latent_space.npz" in left and "C5_relations.pkl" in left
+
+
+# -- Slice H: morphology, validation contours, trajectory GIFs ----------
+
+def _morph_masks():
+    """A 20 x 10 rectangle (the JAX tests' mask), seeded ellipses at
+    several angles, one with a hole and a second component; as float64,
+    uint8 and bool-valued float32 masks."""
+    yield np.pad(np.ones((20, 10)), ((20, 24), (25, 29)))
+    r = np.random.RandomState(50)
+    yy, xx = np.mgrid[:72, :80]
+    for i in range(5):
+        t, a = r.rand() * np.pi, 8 + 18 * r.rand()
+        b = a * (0.3 + 0.6 * r.rand())
+        u = (yy - 36) * np.cos(t) + (xx - 40) * np.sin(t)
+        v = -(yy - 36) * np.sin(t) + (xx - 40) * np.cos(t)
+        d = (u / a) ** 2 + (v / b) ** 2
+        m = d < 1
+        if i == 3:
+            m &= d > 0.1
+            m[2:5, 2:9] = True
+        yield m.astype([np.float64, np.uint8, np.float32][i % 3])
+
+
+def test_morphology_matches_jax():
+    """``get_size``, ``get_aspect_ratio_no_rotation``, ``get_angle_apr``
+    (its rotation through the port's float64 warp), ``rotate_bound`` and
+    ``get_intensity_profile`` equal to the JAX package's, which reads cv2;
+    KAZE raises, naming the JAX package."""
+    from dynamorph_tpu.analysis import morphology as jax_morph
+    from dynamorph_tpu_torch.analysis import morphology as port_morph
+
+    r = np.random.RandomState(51)
+    for mask in _morph_masks():
+        assert port_morph.get_size(mask) == jax_morph.get_size(mask)
+        assert port_morph.get_aspect_ratio_no_rotation(mask) == \
+            jax_morph.get_aspect_ratio_no_rotation(mask)
+        assert port_morph.get_angle_apr(mask) == \
+            jax_morph.get_angle_apr(mask)
+        for angle in (17.5, -63.0):
+            got = port_morph.rotate_bound(mask, angle)
+            want = jax_morph.rotate_bound(mask, angle)
+            assert got.dtype == want.dtype and got.shape == want.shape
+            assert np.abs(got.astype(float) - want).max() <= 1e-9
+        dat = [r.rand(*mask.shape) * 65535 for _ in range(2)]
+        for m in (mask.astype(bool), None):
+            assert repr(port_morph.get_intensity_profile(dat, m)) == \
+                repr(jax_morph.get_intensity_profile(dat, m))
+    with pytest.raises(NotImplementedError, match="dynamorph_tpu"):
+        port_morph.extract_features(np.zeros((2, 32, 32)))
+
+
+def _validation_inputs(root, seg_png):
+    """A two-site-free validation layout: a float64 (3, 2, 1, 96, 80)
+    stack and one ``segmentation_<t>.png`` per frame (the same file for
+    both packages: they write different instance maps)."""
+    raw_dir, supp_dir = root / "raw", root / "supp"
+    seg_dir = supp_dir / "B4-supps" / "B4-Site_0"
+    seg_dir.mkdir(parents=True)
+    raw_dir.mkdir()
+    stack = np.random.RandomState(52).rand(3, 2, 1, 96, 80) * 4000 - 500
+    np.save(raw_dir / "B4-Site_0.npy", stack)
+    for t in range(3):
+        with open(seg_dir / f"segmentation_{t}.png", "wb") as f:
+            f.write(seg_png)
+    return raw_dir, supp_dir
+
+
+@pytest.mark.parametrize("writer", ["cv2_gray", "cv2_bgr", "port_bgr"])
+def test_validation_contours_and_tiff_match_jax(writer, tmp_path):
+    """``segmentation_validation_contours`` (resized 96 x 80 -> 61 x 47,
+    a non-integer factor: uint8 bilinear for the frame, nearest for the
+    map) and ``validation_pngs_to_tiff``: every overlay PNG decodes equal
+    to the JAX package's, the TIFF is byte-equal; the instance map as a
+    gray PNG and as a color one (read as gray, libpng's weights)."""
+    from dynamorph_tpu.pipeline import segmentation as jax_seg
+    from dynamorph_tpu_torch.io.png import write_png
+    from dynamorph_tpu_torch.pipeline import segmentation as port_seg
+
+    r = np.random.RandomState(53)
+    lab = np.zeros((96, 80, 3), np.uint8)
+    yy, xx = np.mgrid[:96, :80]
+    for cy, cx, rad in ((30, 20, 12), (60, 50, 17), (80, 10, 9)):
+        lab[(yy - cy) ** 2 + (xx - cx) ** 2 < rad ** 2] = r.randint(
+            0, 256, 3)
+    img = lab[..., 0] if writer == "cv2_gray" else lab
+    src = tmp_path / "map.png"
+    (write_png if writer == "port_bgr" else cv2.imwrite)(str(src), img)
+    seg_png = src.read_bytes()
+    outs = {}
+    for pkg, mod in (("jax", jax_seg), ("port", port_seg)):
+        raw, supp = _validation_inputs(tmp_path / pkg, seg_png)
+        val = tmp_path / pkg / "val"
+        mod.segmentation_validation_contours(str(raw), str(supp), str(val),
+                                             ["B4-Site_0"],
+                                             out_size=(61, 47))
+        outs[pkg] = (val, mod.validation_pngs_to_tiff(str(val),
+                                                      "B4-Site_0"))
+    for t in range(3):
+        got = cv2.imread(str(outs["port"][0] / f"B4-Site_0_{t}.png"))
+        want = cv2.imread(str(outs["jax"][0] / f"B4-Site_0_{t}.png"))
+        assert got.shape == want.shape == (47, 61, 3)
+        np.testing.assert_array_equal(got, want)
+        assert (want == [0, 0, 255]).all(-1).any()      # red edges drawn
+    with open(outs["port"][1], "rb") as a, open(outs["jax"][1], "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_draw_contour_overlay_matches_jax():
+    from dynamorph_tpu.pipeline.segmentation import \
+        draw_contour_overlay as jax_draw
+    from dynamorph_tpu_torch.pipeline.segmentation import \
+        draw_contour_overlay
+
+    r = np.random.RandomState(54)
+    seg = (r.rand(40, 50) * 60).astype(np.uint8)
+    for phase in (r.randint(0, 256, (40, 50)).astype(np.uint8),
+                  r.randn(40, 50), r.rand(40, 50, 3) * 300):
+        np.testing.assert_array_equal(draw_contour_overlay(phase, seg),
+                                      jax_draw(phase, seg))
+
+
+@pytest.mark.parametrize("size", [128, 2048])
+def test_save_traj_bbox_matches_jax(size, tmp_path):
+    """The trajectory GIF (uint16 frames resized to 512 x 512, red boxes at
+    the per-axis scale) decodes equal to the JAX package's, frame by
+    frame."""
+    from PIL import Image
+
+    from dynamorph_tpu.track.visualize import save_traj_bbox as jax_gif
+    from dynamorph_tpu_torch.track.visualize import save_traj_bbox
+
+    r = np.random.RandomState(55)
+    n = 3 if size == 128 else 2
+    stack = r.randint(0, 65536, (n, size, size, 2)).astype(np.uint16)
+    traj = {t: 1 for t in range(n)}
+    pos = {t: np.array([size * (0.2 + 0.3 * t), size * 0.6]) for t in
+           range(n)}
+    save_traj_bbox(traj, pos, stack, str(tmp_path / "port.gif"))
+    jax_gif(traj, pos, stack, str(tmp_path / "jax.gif"))
+    a, b = Image.open(tmp_path / "port.gif"), Image.open(tmp_path / "jax.gif")
+    assert a.n_frames == b.n_frames == n and a.size == b.size == (512, 512)
+    for i in range(n):
+        a.seek(i)
+        b.seek(i)
+        np.testing.assert_array_equal(np.asarray(a.convert("RGB")),
+                                      np.asarray(b.convert("RGB")))

@@ -967,3 +967,106 @@ def test_run_vae_config_forces_mat(chain):
     stack = load_pickle(os.path.join(folder, f"stacks_{t}.pkl"))
     mat = stack[fs[0]]["mat"][:2]
     np.testing.assert_array_equal(data[0], _resize_chw(mat, (INPUT, INPUT)))
+
+
+# -- Slice H: the long-axis-aligned extraction --------------------------
+
+def _ellipse_scene(seed=0):
+    """``tests/test_aux.py:69-139``'s scene: one 512 x 512 frame of 2
+    channels, float64 intensities near 30000, three 24 x 12 elliptical
+    cells (here at seeded angles) 10000 brighter, the probabilities made
+    from their masks; the instance pickles straight from the masks."""
+    r = np.random.RandomState(seed)
+    size = 512
+    yy, xx = np.mgrid[:size, :size]
+    img = r.rand(2, 1, size, size) * 1000 + 30000
+    labels = np.full((size, size), -1)
+    centers = r.randint(120, size - 120, size=(3, 2))
+    for cid, ((cy, cx), t) in enumerate(zip(centers, r.rand(3) * np.pi)):
+        u = (yy - cy) * np.cos(t) + (xx - cx) * np.sin(t)
+        v = -(yy - cy) * np.sin(t) + (xx - cx) * np.cos(t)
+        m = (u / 24.0) ** 2 + (v / 12.0) ** 2 < 1
+        labels[m & (labels < 0)] = cid
+        img[:, 0][:, m] += 10000
+    fg = labels >= 0
+    bg = np.where(fg, 0.05, 0.97)
+    mg = np.where(fg, 0.9, 0.02)
+    seg = np.stack([bg, mg, 1 - bg - mg])[:, None]
+    pix = np.argwhere(fg)
+    positions = {0: [(np.int32(c), np.array(ctr)) for c, ctr in
+                     enumerate(centers)]}
+    assignments = {0: (pix, labels[fg].astype(np.int32))}
+    return img[None], seg[None], positions, assignments
+
+
+def test_align_axis_extraction_matches_jax(tmp_path):
+    """``process_site_extract_patches_align_axis`` (window 256, enlarged
+    to 364) on the scene: ``stacks_rotated_0.pkl`` equal to the JAX
+    package's, keys and arrays bit for bit (the port's warps are cv2's
+    arithmetics: uint8 masks, 2-channel uint16 windows)."""
+    images, segs, positions, assignments = _ellipse_scene()
+    np.save(tmp_path / "s.npy", images)
+    np.save(tmp_path / "s_NNProbabilities.npy", segs)
+    for pkg in ("jax", "port"):
+        d = tmp_path / pkg
+        d.mkdir()
+        save_pickle(positions, str(d / "cell_positions.pkl"))
+        save_pickle(assignments, str(d / "cell_pixel_assignments.pkl"))
+    args = (str(tmp_path / "s.npy"), str(tmp_path / "s_NNProbabilities.npy"))
+    jax_patch.process_site_extract_patches_align_axis(
+        *args, str(tmp_path / "jax"), window_size=256)
+    port_patch.process_site_extract_patches_align_axis(
+        *args, str(tmp_path / "port"), window_size=256, device="cpu")
+    want = load_pickle(str(tmp_path / "jax" / "stacks_rotated_0.pkl"))
+    got = load_pickle(str(tmp_path / "port" / "stacks_rotated_0.pkl"))
+    assert [os.path.basename(k) for k in got] == \
+        [os.path.basename(k) for k in want] == ["0_0.h5", "0_1.h5", "0_2.h5"]
+    for kg, kw in zip(got, want):
+        for field in ("mat", "masked_mat"):
+            assert got[kg][field].dtype == np.float64
+            assert got[kg][field].shape == (4, 1, 256, 256)
+            np.testing.assert_array_equal(got[kg][field], want[kw][field])
+        # the long axis lies along x after the rotation
+        tm = got[kg]["mat"][2, 0]
+        ys, xs = np.nonzero(tm)
+        assert np.ptp(xs) > np.ptp(ys) + 10
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_get_cell_rect_angle_matches_jax(seed):
+    """The long-axis angle of cell masks (ellipses at seeded angles, near
+    squares, a mask with two components and a hole) equals the JAX
+    package's, which reads cv2's minAreaRect; a failed native build
+    propagates."""
+    r = np.random.RandomState(40 + seed)
+    yy, xx = np.mgrid[:96, :96]
+    for _ in range(6):
+        t, a = r.rand() * np.pi, 8 + 20 * r.rand()
+        b = a * (0.3 + 0.7 * r.rand()) if seed != 3 else a * 1.0001
+        u = (yy - 48) * np.cos(t) + (xx - 48) * np.sin(t)
+        v = -(yy - 48) * np.sin(t) + (xx - 48) * np.cos(t)
+        d = (u / a) ** 2 + (v / b) ** 2
+        tm = (d < 1).astype(np.float32)
+        if seed == 2:
+            tm[d < 0.2] = 0
+            tm[5:9, 80:90] = 1
+        assert abs(port_patch.get_cell_rect_angle(tm)
+                   - jax_patch.get_cell_rect_angle(tm)) <= 1e-4
+
+
+def test_contours_build_failure_propagates(monkeypatch):
+    """A failed g++ build of contours.cpp raises NativeError out of the
+    long-axis angle; nothing falls back."""
+    from dynamorph_tpu_torch import native
+
+    def broken(name):
+        raise native.NativeError(f"native build of {name} failed: g++ "
+                                 "exited 1")
+
+    native.load.cache_clear()
+    monkeypatch.setattr(native, "build", broken)
+    try:
+        with pytest.raises(native.NativeError, match="contours failed"):
+            port_patch.get_cell_rect_angle(np.ones((8, 8), np.float32))
+    finally:
+        native.load.cache_clear()

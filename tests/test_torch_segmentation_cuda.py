@@ -4,11 +4,22 @@ tiled ensemble under one numpy RandomState. Card and CPU both run full fp32
 (``fp32_strict``: no TF32 in cuDNN), so the probabilities agree within
 1e-4; TF32 would show as about 1e-3.
 
+Slice H: ``warp_affine`` at its four dtypes (both of cv2's arithmetics)
+equal card vs CPU; a fit step (batch 2, 64 x 64) card vs CPU, each held
+against float64 on its own side of every ReLU and the stem's max-pool
+(``chip_smoke.kink_branches``): the card's gradient error at most 3 x the
+CPU's plus 1e-5 (relative L2 per weight), beside a TF32 control that must
+land above it; and the validation metrics card vs CPU within 1e-12.
+
 This file imports neither jax nor the JAX package, so it also runs on a GPU
 host without them:
 ``python -m pytest --noconftest tests/test_torch_segmentation_cuda.py``.
 Without a card every test skips.
 """
+import copy
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +27,10 @@ from torch import nn
 
 from dynamorph_tpu_torch.seg.inference import predict_whole_map
 from dynamorph_tpu_torch.seg.model import Segment
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from chip_smoke import unet_step_grads  # noqa: E402
 
 PROB_ATOL = 1e-4
 WINDOW = 256
@@ -94,3 +109,76 @@ def test_tiled_ensemble_card_vs_cpu(cuda, dtype):
     assert pg.shape == pc.shape == (1, 3, 1, 2 * WINDOW, 2 * WINDOW)
     assert pg.dtype == np.float64 and not (pg == -1).any()
     assert np.abs(pg - pc).max() <= PROB_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,cn", [(torch.float64, 2), (torch.float32, 1),
+                                      (torch.float32, 2), (torch.uint16, 1),
+                                      (torch.uint16, 2), (torch.uint8, 1)])
+def test_warp_affine_card_vs_cpu(cuda, dtype, cn, monkeypatch):
+    """The extraction's warp (364 x 364, seeded angles about the centre),
+    in chunks of 5, bit-equal on the card and the CPU."""
+    from dynamorph_tpu_torch.ops import geometry
+    from dynamorph_tpu_torch.ops.geometry import rotation_matrix_2d, \
+        warp_affine
+
+    monkeypatch.setattr(geometry, "_CHUNK", 5)
+
+    r = np.random.RandomState(6)
+    w = 364
+    src = torch.from_numpy(r.rand(12, w, w, cn) * 250).to(dtype)
+    Ms = np.stack([rotation_matrix_2d((w / 2, w / 2), a, 1)
+                   for a in r.uniform(-90, 90, 12)])
+    card = warp_affine(src.to(cuda), Ms, (w, w)).cpu()
+    cpu = warp_affine(src, Ms, (w, w))
+    assert card.dtype == dtype and torch.equal(card, cpu)
+
+
+@pytest.mark.cuda
+def test_fit_step_card_vs_cpu(cuda):
+    """One fit step's loss (rtol 1e-4) and gradients card vs CPU, held
+    against float64 with the kinks replayed, beside a TF32 control."""
+    base, _ = _models(window=64, seed=7)
+    base = base.net.cpu()
+    r = np.random.RandomState(8)
+    x = torch.from_numpy(r.rand(2, 2, 64, 64).astype(np.float32))
+    lab = r.rand(2, 3, 64, 64) ** 3
+    lab /= lab.sum(1, keepdims=True)
+    y = torch.from_numpy(np.concatenate([lab, np.ones((2, 1, 64, 64))], 1)
+                         .astype(np.float32))
+
+    def run(dev, dtype, fp32=True, masks=None, replay=False):
+        net = copy.deepcopy(base).to(device=dev, dtype=dtype)
+        return unet_step_grads(torch, net, x.to(dev, dtype), y.to(dev, dtype),
+                               fp32, masks, replay)
+
+    m_card, m_cpu = [], []
+    l_card, g_card = run(cuda, torch.float32, masks=m_card)
+    l_cpu, g_cpu = run("cpu", torch.float32, masks=m_cpu)
+    _, f_card = run("cpu", torch.float64, masks=m_card, replay=True)
+    _, f_cpu = run("cpu", torch.float64, masks=m_cpu, replay=True)
+    _, g_tf32 = run(cuda, torch.float32, fp32=False)
+    assert abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
+
+    def err(g, f, n):
+        return float(torch.norm(g[n] - f[n]) / torch.norm(f[n]))
+
+    def ratio(g):
+        return max(err(g, f_card, n) / (3.0 * err(g_cpu, f_cpu, n) + 1e-5)
+                   for n in f_card)
+
+    assert ratio(g_card) <= 1
+    assert ratio(g_tf32) > 1
+
+
+@pytest.mark.cuda
+def test_validation_metrics_card_vs_cpu(cuda):
+    from dynamorph_tpu_torch.seg.metrics import f1_score, roc_auc_score
+
+    r = np.random.RandomState(9)
+    truth = torch.from_numpy(r.rand(8, 256, 256) > 0.7)
+    score = torch.from_numpy((r.randn(8, 256, 256) + truth.numpy())
+                             .astype(np.float32))
+    score[0, :10] = 0.25                       # a run of ties
+    for fn, s in ((roc_auc_score, score), (f1_score, score > 0.5)):
+        assert abs(fn(truth.to(cuda), s.to(cuda)) - fn(truth, s)) <= 1e-12
