@@ -197,6 +197,30 @@ passed prints the final ``{"ok": true, ...}`` line:
    extraction's batched warp timed against the extraction; the validation
    overlays at 1108², their TIFF and a trajectory GIF (seconds). This path
    reaches no Pallas kernel and launches neither VQ kernel.
+15. reference-trained Keras weights (the card's machine has no h5py, so the
+   script writes its ``.h5`` files with its own HDF5 writer, ``write_h5``,
+   and the port reads them with ``io/hdf5.py``): seeded weights of the
+   reference graph's U-Net at its published widths (pre_conv 2 -> 3,
+   classification_models ResNet34, the sm 1.0.1 decoder 256 ... 16, 3
+   classes) in ``save_weights``'s layout; ``Segment((2, 256, 256)).load``
+   of it on the card (seconds), 8 tiles' logits card vs CPU within 1e-4 of
+   max |logit| (phase 8's rule) beside a TF32 control that must land over
+   it, ``verify_against_golden`` on the card against CPU goldens;
+   ``run_segmentation -m segmentation`` with the ``.h5`` as weights on
+   phase 8's site (2 frames of 2 x 2048²), tiled and direct, its outputs
+   checked as phase 8's, and the device ms of one 2048² frame in each mode;
+   ``fit`` from the imported weights with ``freeze_encoder=True`` (2 steps
+   at batch 8 of 256² and a validation pass): the encoder's weights and
+   ``bn_data``'s gamma bit-unchanged, everything else moved, then the step
+   timed on a resident batch with its idle share; the 2.5-D model (3
+   slices, unet_feat 32 read from the file) card vs CPU at the same rule
+   with a TF32 control; InceptionResNetV2 from an ``.h5`` numbered from an
+   offset with the with-top ``predictions`` layer, and ResNet50 from a
+   torchvision-format state_dict, each through ``extract_features`` on
+   phase 4's 2,304-patch well (4,608 images of 224², images/s end to end
+   and of the device encode alone at batch 128), card vs CPU on 16 images
+   within 1e-5 of max |feature| beside a TF32 control. Launches neither VQ
+   kernel.
    Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and the
    ``{"ok": true, ...}`` line.
 """
@@ -208,6 +232,7 @@ import ctypes
 import json
 import logging
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -1628,7 +1653,7 @@ def phase_segmentation(torch, vq, root, dev, card):
                 tiles_tf32_control=tiles_err[1], direct_vs_cpu=direct_err[0],
                 direct_tf32_control=direct_err[1], timed=timed,
                 tile_gflop=tile_flops / 1e9, load_s=load_s, write_s=write_s,
-                host_share=1 - dev_s / stage_s)
+                host_share=1 - dev_s / stage_s, site_path=site_path)
 
 
 # ---------------------------------------------------------------- phase 9
@@ -4677,6 +4702,654 @@ def phase_unet_geometry(torch, vq, root, dev, card):
                 launches=launches)
 
 
+# ---------------------------------------------------------------- phase 15
+#
+# The card's machine has no h5py, so the phase writes its Keras weight files
+# itself: the HDF5 subset that h5py writes by default (superblock 0, version-1
+# object headers, symbol-table groups with their B-tree, symbol node and local
+# heap, contiguous datasets) and the string attributes a Keras file carries
+# (``layer_names``, ``weight_names``).
+
+H5_UNDEF = (1 << 64) - 1
+H5_GROUP_INTERNAL_K = 16    # h5py's default; a group B-tree node's size
+H5_FLOATS = {4: (31, 23, 8, 23, 127), 8: (63, 52, 11, 52, 1023)}
+
+
+def _h5_pad(b: bytes) -> bytes:
+    return bytes(b) + b"\0" * (-len(b) % 8)
+
+
+def _h5_message(mtype: int, body: bytes) -> bytes:
+    body = _h5_pad(body)
+    return struct.pack("<HHB3x", mtype, len(body), 0) + body
+
+
+def _h5_dataspace(shape) -> bytes:
+    return struct.pack("<BBB5x", 1, len(shape), 1) + struct.pack(
+        f"<{2 * len(shape)}Q", *shape, *shape)
+
+
+def _h5_datatype(dtype: np.dtype) -> bytes:
+    size = dtype.itemsize
+    if dtype.kind == "f":
+        sign, e_loc, e_size, m_size, bias = H5_FLOATS[size]
+        return struct.pack("<4BIHH4BI", 0x11, 0x20, sign, 0, size, 0,
+                           8 * size, e_loc, e_size, 0, m_size, bias)
+    if dtype.kind in "iu":
+        return struct.pack("<4BIHH", 0x10, 8 if dtype.kind == "i" else 0, 0,
+                           0, size, 0, 8 * size)
+    if dtype.kind == "S":                     # fixed length, null padded
+        return struct.pack("<4BI", 0x13, 1, 0, 0, size)
+    raise TypeError(f"no HDF5 datatype for {dtype}")
+
+
+def _h5_attribute(name: str, arr: np.ndarray) -> bytes:
+    nm, dt, ds = name.encode() + b"\0", _h5_datatype(arr.dtype), \
+        _h5_dataspace(arr.shape)
+    return _h5_message(12, struct.pack("<BxHHH", 1, len(nm), len(dt), len(ds))
+                       + _h5_pad(nm) + _h5_pad(dt) + _h5_pad(ds)
+                       + arr.tobytes())
+
+
+def _h5_object_header(messages) -> bytes:
+    body = b"".join(messages)
+    return struct.pack("<BxHII4x", 1, len(messages), 1, len(body)) + body
+
+
+def write_h5(path: str, tree: dict, attrs: dict = None) -> None:
+    """Write ``tree`` ({name: sub-dict (a group) or array (a dataset)}) as an
+    HDF5 file that h5py and ``dynamorph_tpu_torch.io.hdf5`` read; ``attrs``
+    maps a group's path ("" for the root) to {name: array} attributes
+    (numeric or fixed-length byte strings). Datasets are little-endian and
+    contiguous."""
+    attrs = attrs or {}
+    chunks, size = [b"\0" * 96], 96         # the superblock, written last
+
+    def put(b) -> int:
+        nonlocal size
+        addr = size
+        b = memoryview(b).cast("B")
+        chunks.append(b)
+        size += len(b)
+        if len(b) % 8:
+            chunks.append(b"\0" * (-len(b) % 8))
+            size += -len(b) % 8
+        return addr
+
+    def max_members(t):
+        return max([len(t)] + [max_members(v) for v in t.values()
+                               if isinstance(v, dict)])
+
+    leaf_k = max(4, -(-max_members(tree) // 2))
+
+    def dataset(arr) -> int:
+        arr = np.ascontiguousarray(arr)
+        arr = arr.astype(arr.dtype.newbyteorder("<"), copy=False)
+        data = put(arr) if arr.size else H5_UNDEF
+        layout = struct.pack("<BBQQ", 3, 1, data, arr.nbytes)
+        return put(_h5_object_header([
+            _h5_message(1, _h5_dataspace(arr.shape)),
+            _h5_message(3, _h5_datatype(arr.dtype)),
+            _h5_message(5, struct.pack("<4BI", 2, 2, 2, 1, 0)),
+            _h5_message(8, layout)]))
+
+    def group(t, path):
+        members = sorted((k.encode(), dataset(v) if not isinstance(v, dict)
+                          else group(v, f"{path}/{k}".lstrip("/"))[0])
+                         for k, v in t.items())
+        heap, offsets = bytearray(8), []
+        for name, _ in members:
+            offsets.append(len(heap))
+            heap += _h5_pad(name + b"\0")
+        heap_addr = put(b"HEAP" + bytes(4) + struct.pack(
+            "<QQQ", len(heap), 1, put(heap)))
+        keys = b""
+        if members:
+            snod = b"SNOD" + struct.pack("<BxH", 1, len(members)) + b"".join(
+                struct.pack("<QQII16x", off, addr, 0, 0)
+                for off, (_, addr) in zip(offsets, members))
+            snod += bytes(8 + 2 * leaf_k * 40 - len(snod))
+            keys = struct.pack("<QQQ", 0, put(snod), offsets[-1])
+        node = b"TREE" + struct.pack("<BBHQQ", 0, 0, 1 if members else 0,
+                                     H5_UNDEF, H5_UNDEF) + keys
+        node += bytes(24 + 16 * H5_GROUP_INTERNAL_K
+                      + 8 * (2 * H5_GROUP_INTERNAL_K + 1) - len(node))
+        btree = put(node)
+        msgs = [_h5_message(17, struct.pack("<QQ", btree, heap_addr))]
+        msgs += [_h5_attribute(k, np.asarray(v))
+                 for k, v in attrs.get(path, {}).items()]
+        return put(_h5_object_header(msgs)), btree, heap_addr
+
+    root, btree, heap = group(tree, "")
+    superblock = b"\x89HDF\r\n\x1a\n" + bytes([0, 0, 0, 0, 0, 8, 8, 0]) \
+        + struct.pack("<HHI", leaf_k, H5_GROUP_INTERNAL_K, 0) \
+        + struct.pack("<QQQQ", 0, H5_UNDEF, size, H5_UNDEF) \
+        + struct.pack("<QQII", 0, root, 1, 0) + struct.pack("<QQ", btree, heap)
+    chunks[0] = superblock
+    with open(path, "wb") as f:
+        for c in chunks:
+            f.write(c)
+
+
+def keras_h5_layout(layers: dict, nested: str = None):
+    """(tree, attrs) of ``write_h5`` for Keras weights ({layer: {weight name
+    with ":0": array}}) in ``save_weights``'s layout: a group a layer with
+    its weights under ``<layer>/<weight>`` and a ``weight_names``
+    attribute; with ``nested``, every layer but ``pre_conv`` sits in that
+    one group, as the layers of a model nested in the saved one do."""
+    tree, attrs = {}, {}
+
+    def add(group, path, items):
+        for layer, lw in items:
+            group.setdefault(layer, {}).update(lw)
+        attrs[path] = {"weight_names": np.array(
+            [f"{layer}/{k}".encode() for layer, lw in items for k in lw])}
+
+    outer = [(n, lw) for n, lw in layers.items()
+             if nested is None or n == "pre_conv"]
+    for layer, lw in outer:
+        tree[layer] = {}
+        add(tree[layer], layer, [(layer, lw)])
+    if nested is not None:
+        tree[nested] = {}
+        add(tree[nested], nested,
+            [(n, lw) for n, lw in layers.items() if n != "pre_conv"])
+    attrs[""] = {"layer_names": np.array(
+        [n.encode() for n in tree] or [b""])}
+    return tree, attrs
+
+
+# Keras weights on the card: the reference graph's U-Net at its published
+# widths (pre_conv 2 -> 3, classification_models ResNet34 with
+# pre-activation units, the sm 1.0.1 upsampling decoder 256, 128, 64, 32,
+# 16, 3 classes; reference NNsegmentation/models.py:73-96), its 2.5-D
+# model (3 slices, SegmentWithMultipleSlice's default unet_feat 32) and
+# InceptionResNetV2 (include_top=False), each with seeded random weights
+# written as a Keras .h5; a torchvision-format ResNet50 state_dict.
+K_MS_SLICES = 3
+K_MS_FEAT = 32
+K_FIT_TRAIN = 16            # 2 steps at batch U_BATCH
+K_FIT_VALID = 8
+K_IRV2_OFFSET = 250         # auto-numbering offset of the InceptionResNetV2
+K_LOGIT_RTOL = 1e-4         # card vs CPU logits, of max |logit| (phase 8)
+K_FEAT_CHECK = 8            # patches (16 images) of the card-vs-CPU features
+# card vs CPU pooled features: 1e-5 of max |feature|, phase 12's rule for
+# the ResNet50 encode (E1_ENCODE_ATOL), for both networks
+K_FEAT_RTOL = 1e-5
+K_FEAT_BATCH = 128          # extract_features' default batch
+
+
+def keras_weights(torch, net, seed, head_scale=1.0):
+    """{layer: {"<weight>:0": array}} in Keras's layout for every layer of
+    ``net`` (a port module whose children carry Keras layer names): conv
+    kernels (kh, kw, in, out) He-scaled, ``final_conv``'s times
+    ``head_scale`` (so a U-Net's logits are O(10), not O(1000)), biases
+    N(0, 0.1); batch norm gamma U(0.5, 1.5) where the layer has one (not
+    ``bn_data``, not InceptionResNetV2's scale=False ones), beta and moving
+    mean N(0, 0.2), moving variance U(0.5, 1.5)."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for name, m in net.named_children():
+        if isinstance(m, torch.nn.Conv2d):
+            o, i, kh, kw = m.weight.shape
+            lw = {"kernel:0": rng.randn(kh, kw, i, o) * np.sqrt(
+                2.0 / (kh * kw * i)) * (head_scale if name == "final_conv"
+                                        else 1.0)}
+            if m.bias is not None:
+                lw["bias:0"] = 0.1 * rng.randn(o)
+        else:
+            n = m.num_features
+            lw = {"gamma:0": 0.5 + rng.rand(n)} if m.weight.requires_grad \
+                else {}
+            lw.update({"beta:0": 0.2 * rng.randn(n),
+                       "moving_mean:0": 0.2 * rng.randn(n),
+                       "moving_variance:0": 0.5 + rng.rand(n)})
+        out[name] = {k: v.astype(np.float32) for k, v in lw.items()}
+    return out
+
+
+def write_keras_file(path, layers, nested=None):
+    """``layers`` as a Keras weight file (``keras_h5_layout``); returns its
+    size in MB and the seconds the write took."""
+    t0 = time.perf_counter()
+    write_h5(path, *keras_h5_layout(layers, nested=nested))
+    return os.path.getsize(path) / 1e6, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def tf32_on(torch):
+    """cuDNN's and cuBLAS's TF32 on inside the block (a control), the
+    caller's settings back after it."""
+    saved = torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def unet_logits(torch, model, x, tf32=False):
+    """A Segment's logits of ``x`` (on its device) as numpy: fp32 with no
+    TF32, or with TF32 on (the control)."""
+    from dynamorph_tpu_torch.core.device import fp32_strict
+
+    with torch.no_grad(), tf32_on(torch) if tf32 else fp32_strict():
+        return model.net.apply(x, train=False).cpu().numpy()
+
+
+def keras_unet_part(torch, dev, root, seg, tag):
+    """The 2-D Keras U-Net: write its .h5, load it on the card and the CPU
+    through the port's reader, logits card vs CPU beside a TF32 control,
+    run_segmentation -m segmentation from the .h5 on phase 8's site in both
+    modes, the device ms per 2048^2 frame, and verify_against_golden on the
+    card against CPU goldens."""
+    from dynamorph_tpu_torch.cli import run_segmentation
+    from dynamorph_tpu_torch.models.unet_keras import KerasUNet
+    from dynamorph_tpu_torch.seg.data import load_input
+    from dynamorph_tpu_torch.seg.keras_import import verify_against_golden
+    from dynamorph_tpu_torch.seg.model import Segment
+
+    with torch.device("meta"):
+        layers = keras_weights(torch, KerasUNet(2, 3), SEED + 20,
+                               head_scale=1 / 200)
+    h5 = os.path.join(root, "keras_unet.h5")
+    mb, write_s = write_keras_file(h5, layers, nested="model_1")
+    del layers
+    t0 = time.perf_counter()
+    card = Segment(input_shape=(2, SEG_WINDOW, SEG_WINDOW), n_classes=3,
+                   device=dev)
+    card.load(h5)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cpu = Segment(input_shape=(2, SEG_WINDOW, SEG_WINDOW), n_classes=3,
+                  device="cpu")
+    cpu.load(h5)
+    assert isinstance(card.net, KerasUNet) and isinstance(cpu.net, KerasUNet)
+    n_params = sum(p.numel() for p in card.net.parameters())
+    log(f"Keras U-Net .h5 ({mb:.1f} MB, {n_params:,} parameters, save_weights"
+        f" layout with a nested model group) written in {write_s:.2f} s by "
+        f"the script's own HDF5 writer; Segment.load on the card (the port's "
+        f"HDF5 reader, the import, the upload) {load_s:.3f} s{tag}")
+
+    # card vs CPU on 8 full-width tiles of phase 8's site
+    site = load_input(seg["site_path"])[:, :2]
+    w = SEG_WINDOW
+    tiles = np.stack([site[0, :, 0, r:r + w, c:c + w]
+                      for r in (0, 3 * w) for c in (0, 2 * w, 4 * w, 7 * w)]
+                     ).astype(np.float32) / 65535.0
+    x_card = torch.from_numpy(tiles).to(dev)
+    want = unet_logits(torch, cpu, torch.from_numpy(tiles))
+    top = float(np.abs(want).max())
+    err = float(np.abs(unet_logits(torch, card, x_card) - want).max()) / top
+    ctrl = float(np.abs(unet_logits(torch, card, x_card, tf32=True)
+                        - want).max()) / top
+    log(f"Keras U-Net, {len(tiles)} tiles of {w}^2, logits card vs CPU: "
+        f"{err:.3e} of max |logit| {top:.3f} (limit {K_LOGIT_RTOL:g}); TF32 "
+        f"control {ctrl:.3e} ({ctrl / K_LOGIT_RTOL:.1f}x the limit){tag}")
+    if not err <= K_LOGIT_RTOL:
+        raise AssertionError(f"Keras U-Net logits card vs CPU {err:.3e}")
+    if not ctrl > K_LOGIT_RTOL:
+        raise AssertionError("the Keras U-Net TF32 control lands inside the "
+                             "limit, so the check cannot see TF32")
+
+    golden = os.path.join(root, "keras_golden.npz")
+    np.savez(golden, golden_input=tiles[:2], golden_logits=want[:2])
+    golden_dev = verify_against_golden(card.net, golden)
+    log(f"verify_against_golden on the card against CPU goldens (2 tiles): "
+        f"max |d logit| {golden_dev:.3e} (atol 2e-3, classes agreeing on "
+        f">= 99.9% of pixels){tag}")
+
+    # run_segmentation from the .h5 on phase 8's site, both modes
+    raw, supp = (os.path.join(root, d)
+                 for d in ("keras_seg_raw", "keras_seg_supp"))
+    os.makedirs(raw)
+    os.makedirs(supp)
+    name = os.path.basename(seg["site_path"])[:-4]
+    os.symlink(seg["site_path"], os.path.join(raw, f"{name}.npy"))
+    timing_log = os.path.join(root, "keras_seg_timing.jsonl")
+    os.environ["DYNAMORPH_TIMING_LOG"] = timing_log
+    runs = {}
+    try:
+        for mode in ("tiled", "direct"):
+            cfg = os.path.join(root, f"keras_seg_{mode}.yml")
+            with open(cfg, "w") as f:
+                f.write("segmentation_inference:\n"
+                        f"  raw_dirs: ['{raw}']\n  supp_dirs: ['{supp}']\n"
+                        f"  weights: '{h5}'\n  channels: [0, 1]\n"
+                        f"  num_classes: 3\n  window_size: {SEG_WINDOW}\n"
+                        f"  num_pred_rnd: {SEG_SUPP}\n"
+                        f"  inference_mode: '{mode}'\n")
+            np.random.seed(SEED)
+            errors = ErrorRecords()
+            logging.getLogger().addHandler(errors)
+            t0 = time.perf_counter()
+            try:
+                run_segmentation.main(["-m", "segmentation", "-c", cfg,
+                                       "--device", dev.type])
+            finally:
+                logging.getLogger().removeHandler(errors)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            with open(timing_log) as f:
+                stage_s = json.loads(f.read().splitlines()[-1])["seconds"]
+            check_seg_outputs(raw, name, mode, errors.messages)
+            log(f"run_segmentation -m segmentation {mode} from the .h5: "
+                f"{wall:.3f} s wall for {SEG_T} frames of 2 x {SEG_FRAME}^2,"
+                f" the site stage {stage_s:.3f} s{tag}")
+            runs[mode] = dict(wall=wall, stage_s=stage_s)
+    finally:
+        del os.environ["DYNAMORPH_TIMING_LOG"]
+
+    # device ms per 2048^2 frame: the tiled ensemble's tile batches and the
+    # direct mode's one frame
+    one = site[0, :, 0]
+    x64 = torch.from_numpy(np.stack([
+        one[:, r:r + w, c:c + w] for r in range(0, SEG_FRAME, w)
+        for c in range(0, SEG_FRAME, w)]).astype(np.float32)).to(dev) / 65535.
+    n_supp = (SEG_FRAME // w - 1) ** 2
+    x_full = torch.from_numpy(one[None].astype(np.float32)).to(dev) / 65535.
+    device_ms = {
+        "tiled": time_cuda(torch, lambda: card.probabilities(x64), 3)
+        + SEG_SUPP * time_cuda(torch, lambda: card.probabilities(
+            x64[:n_supp]), 3),
+        "direct": time_cuda(torch, lambda: card.probabilities(x_full), 3)}
+    flops = conv_flops(torch, card, x64[:1])
+    for mode, ms in device_ms.items():
+        n = len(x64) + SEG_SUPP * n_supp if mode == "tiled" else len(x64)
+        log(f"Keras U-Net, one {SEG_FRAME}^2 frame {mode}: device work "
+            f"{ms:.3f} ms ({1e3 / ms:.3f} frames/s), "
+            f"{n * flops / ms / 1e9 / (FP32_FLOP_PER_S / 1e12):.4f} of the "
+            f"fp32 rate ({flops / 1e9:.3f} GFLOP a {w}^2 tile){tag}")
+    return dict(h5=h5, mb=mb, write_s=write_s, load_s=load_s, logit_err=err,
+                logit_control=ctrl, golden_dev=golden_dev, runs=runs,
+                device_ms=device_ms, tile_gflop=flops / 1e9)
+
+
+def keras_fit_part(torch, dev, root, h5, tag):
+    """Segment.fit from the imported .h5 with freeze_encoder=True (2 steps
+    at batch 8 of 256^2 and a validation pass): the encoder's weights and
+    bn_data's gamma bit-unchanged, the decoder and every running statistic
+    moved; then the step timed on a resident batch, its idle share."""
+    from dynamorph_tpu_torch.models.unet_keras import encoder_layer_names
+    from dynamorph_tpu_torch.seg.model import Segment
+
+    rng = np.random.RandomState(SEED + 23)
+    pairs = []
+    for _ in range(K_FIT_TRAIN + K_FIT_VALID):
+        lab = rng.rand(3, 1, SEG_WINDOW, SEG_WINDOW) ** 3
+        pairs.append([rng.rand(2, 1, SEG_WINDOW, SEG_WINDOW) * 65535,
+                      lab / lab.sum(0, keepdims=True)])
+    model = Segment(input_shape=(2, SEG_WINDOW, SEG_WINDOW), n_classes=3,
+                    freeze_encoder=True, device=dev,
+                    model_path=os.path.join(root, "keras_fit"))
+    model.load(h5)
+    before = {k: v.clone() for k, v in model.net.state_dict().items()}
+    t0 = time.perf_counter()
+    hist = model.fit(pairs[:K_FIT_TRAIN], batch_size=U_BATCH, n_epochs=1,
+                     valid_patches=pairs[K_FIT_TRAIN:])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    encoder = tuple(n + "." for n in encoder_layer_names())
+
+    def frozen_kept(sd):
+        bad = [k for k, v in sd.items() if k.startswith(encoder)
+               and "running" not in k and "num_batches" not in k
+               and not torch.equal(v, before[k])]
+        if not torch.equal(sd["bn_data.weight"],
+                           torch.ones(3, device=dev)):
+            bad.append("bn_data.weight")
+        return bad
+
+    after = model.net.state_dict()
+    moved = [k for k, v in after.items() if not k.startswith(encoder)
+             and v.dtype.is_floating_point and not torch.equal(v, before[k])]
+    stats = [k for k, v in after.items() if "running" in k
+             and not torch.equal(v, before[k])]
+    bad = frozen_kept(after)
+    n_running = sum("running" in k for k in after)
+    log(f"fit from the .h5, freeze_encoder=True: {K_FIT_TRAIN} patches at "
+        f"batch {U_BATCH} + {K_FIT_VALID} validation, {fit_s:.3f} s, loss "
+        f"{hist[0]['loss']:.6f} val_loss {hist[0]['val_loss']:.6f}; encoder "
+        f"weights and bn_data's gamma changed: {bad or 'none'}; decoder "
+        f"tensors moved {len(moved)}; running statistics moved "
+        f"{len(stats)} of {n_running}{tag}")
+    if bad or len(stats) != n_running or not moved:
+        raise AssertionError(f"freeze_encoder: changed {bad}, moved "
+                             f"{len(moved)}, statistics {len(stats)}")
+
+    X, y = model._arrays(pairs[:U_BATCH], "prob")
+    xb, yb = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
+    _, step = model._make_step(1e-3)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_cuda(torch, lambda: step(xb, yb), 10)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"Keras U-Net train step, freeze_encoder, batch {U_BATCH}, "
+        f"{SEG_WINDOW}^2, fp32 (no TF32), device-resident: {step_ms:.6f} ms,"
+        f" {U_BATCH / step_ms * 1e3:.1f} patches/s; peak device memory "
+        f"{peak:.3f} GB{tag}")
+    prof = profile_steps(torch, lambda: step(xb, yb), 2, step_ms,
+                         families=E1_FAMILIES, other=SEG_OTHER, tag=tag)
+    bad = frozen_kept(model.net.state_dict())
+    if bad:
+        raise AssertionError(f"freeze_encoder let {bad[:3]} move over the "
+                             "timed steps")
+    return dict(fit_s=fit_s, step_ms=step_ms, peak_gb=peak,
+                idle=None if prof is None else max(
+                    0.0, 1 - prof["busy_ms"] / step_ms),
+                busy_ms=None if prof is None else prof["busy_ms"],
+                history=hist)
+
+
+def keras_multislice_part(torch, dev, root, tag):
+    """SegmentWithMultipleSlice.load of a 2.5-D .h5 (its dims read from the
+    file) on the card and the CPU; the logits of 2 samples card vs CPU at
+    the 2-D model's rule, beside a TF32 control."""
+    from dynamorph_tpu_torch.models.unet_keras import MultiSliceKerasUNet
+    from dynamorph_tpu_torch.seg.model import SegmentWithMultipleSlice
+
+    with torch.device("meta"):
+        layers = keras_weights(torch, MultiSliceKerasUNet(
+            2, K_MS_SLICES, 3, K_MS_FEAT), SEED + 21, head_scale=1 / 20)
+    h5 = os.path.join(root, "keras_unet_ms.h5")
+    mb, _ = write_keras_file(h5, layers, nested="model_1")
+    del layers
+    shape = (2, K_MS_SLICES, SEG_WINDOW, SEG_WINDOW)
+    models = {}
+    for where in ("cpu", dev):
+        m = SegmentWithMultipleSlice(input_shape=shape, n_classes=3,
+                                     device=where)
+        m.load(h5)
+        assert m.unet_feat == K_MS_FEAT
+        models[str(where)] = m
+    card = models[str(dev)]
+    r = np.random.RandomState(SEED + 21)
+    x = r.rand(2, 2, K_MS_SLICES, SEG_WINDOW, SEG_WINDOW).astype(np.float32)
+    want = unet_logits(torch, models["cpu"], torch.from_numpy(x))
+    top = float(np.abs(want).max())
+    xd = torch.from_numpy(x).to(dev)
+    got = unet_logits(torch, card, xd)
+    err = float(np.abs(got - want).max()) / top
+    ctrl = float(np.abs(unet_logits(torch, card, xd, tf32=True)
+                        - want).max()) / top
+    prob = float(np.abs(torch.softmax(torch.from_numpy(got), 1).numpy()
+                        - torch.softmax(torch.from_numpy(want), 1).numpy()
+                        ).max())
+    log(f"SegmentWithMultipleSlice.load of a 2.5-D .h5 ({mb:.1f} MB; "
+        f"{K_MS_SLICES} slices, unet_feat {K_MS_FEAT} read from the file): 2 "
+        f"samples, logits card vs CPU {err:.3e} of max |logit| {top:.3f} "
+        f"(limit {K_LOGIT_RTOL:g}; max |d prob| {prob:.3e}); TF32 control "
+        f"{ctrl:.3e} ({ctrl / K_LOGIT_RTOL:.1f}x the limit){tag}")
+    if not err <= K_LOGIT_RTOL:
+        raise AssertionError(f"2.5-D Keras model card vs CPU {err:.3e}")
+    if not ctrl > K_LOGIT_RTOL:
+        raise AssertionError("the 2.5-D TF32 control lands inside the limit,"
+                             " so the check cannot see TF32")
+    return dict(err=err, control=ctrl, prob_err=prob, max_logit=top, mb=mb)
+
+
+def tf32_features(torch, model, x):
+    """Pooled features of the host images ``x`` with TF32 on (the
+    control)."""
+    with torch.no_grad(), tf32_on(torch):
+        xd = torch.from_numpy(x).to(next(model.parameters()).device)
+        return getattr(model, "convnet", model)(xd).cpu().numpy()
+
+
+def features_vs_cpu(torch, what, card_model, cpu_model, x, tag):
+    """Pooled features of the preprocessed images ``x`` card vs CPU, and
+    of the card with TF32 on (the control), of max |feature|."""
+    want = cpu_model.encode_batched(x, out="h")
+    top = float(np.abs(want).max())
+    err = float(np.abs(card_model.encode_batched(x, out="h")
+                       - want).max()) / top
+    ctrl = float(np.abs(tf32_features(torch, card_model, x)
+                        - want).max()) / top
+    log(f"{what}, {len(x)} images of 224^2, card vs CPU: {err:.3e} of max "
+        f"|feature| {top:.3f} (limit {K_FEAT_RTOL:g}); TF32 control "
+        f"{ctrl:.3e} ({ctrl / K_FEAT_RTOL:.1f}x the limit){tag}")
+    if not err <= K_FEAT_RTOL:
+        raise AssertionError(f"{what} features card vs CPU {err:.3e}")
+    if not ctrl > K_FEAT_RTOL:
+        raise AssertionError(f"the {what} TF32 control lands inside the "
+                             "limit, so the check cannot see TF32")
+    return err, ctrl
+
+
+def keras_imagenet_part(torch, dev, root, well, tag):
+    """initiate_model_inception from an offset-numbered with-top .h5 and
+    initiate_model from a torchvision ResNet50 state_dict, each through
+    extract_features on phase 4's 2,304-patch well (4,608 images of
+    224^2): shapes, images/s end to end and of the device encode alone, and
+    card vs CPU on a subset beside a TF32 control."""
+    from dynamorph_tpu_torch.analysis import imagenet_baseline as ib
+    from dynamorph_tpu_torch.core.device import fp32_strict
+    from dynamorph_tpu_torch.models.inception_resnet_v2 import \
+        InceptionResNetV2
+    from dynamorph_tpu_torch.models.resnet_simclr import EncodeProject
+
+    def offset(name):
+        for prefix in ("conv2d", "batch_normalization"):
+            if name == prefix:
+                return f"{prefix}_{K_IRV2_OFFSET}"
+            tail = name[len(prefix) + 1:]
+            if name.startswith(prefix + "_") and tail.isdigit():
+                return f"{prefix}_{int(tail) + K_IRV2_OFFSET}"
+        return name
+
+    with torch.device("meta"):
+        irv2 = InceptionResNetV2(seed=None)
+    layers = {offset(k): v for k, v in keras_weights(
+        torch, irv2, SEED + 22).items()}
+    layers["predictions"] = {"kernel:0": np.zeros((1536, 1000), np.float32),
+                             "bias:0": np.zeros(1000, np.float32)}
+    h5 = os.path.join(root, "irv2.h5")
+    mb, write_s = write_keras_file(h5, layers)
+    del layers
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED + 22)
+        trunk = EncodeProject("ResNet50", num_inputs=3).convnet
+    g = torch.Generator().manual_seed(SEED + 22)
+    sd = {}
+    with torch.no_grad():
+        for k, v in trunk.state_dict().items():
+            if k.endswith(("running_mean", "bias")):
+                v = 0.1 * torch.randn(v.shape, generator=g)
+            elif k.endswith("running_var"):
+                v = 0.5 + torch.rand(v.shape, generator=g)
+            sd[k] = v
+    sd["fc.weight"] = torch.zeros(1000, 2048)
+    sd["fc.bias"] = torch.zeros(1000)
+    pt = os.path.join(root, "resnet50_torchvision.pt")
+    torch.save(sd, pt)
+
+    t0 = time.perf_counter()
+    models = {"InceptionResNetV2": ib.initiate_model_inception(weights=h5,
+                                                                device=dev)}
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    models["ResNet50"] = ib.initiate_model(weights=pt, device=dev)
+    cpu = {"InceptionResNetV2": ib.initiate_model_inception(weights=h5,
+                                                             device="cpu"),
+           "ResNet50": ib.initiate_model(weights=pt, device="cpu")}
+    log(f"InceptionResNetV2 .h5 ({mb:.1f} MB, auto-numbering from "
+        f"conv2d_{K_IRV2_OFFSET}, with the with-top predictions layer) "
+        f"written in {write_s:.2f} s, initiate_model_inception on the card "
+        f"{load_s:.3f} s; ResNet50 from a torchvision state_dict{tag}")
+
+    patches = well[:, :, 0]
+    out = {}
+    for name, mode, dim in (("InceptionResNetV2", "inception", 1536),
+                            ("ResNet50", "torch", 2048)):
+        model = models[name]
+        x = np.concatenate([ib.preprocess(p, mode=mode)
+                            for p in patches[:K_FEAT_CHECK]])
+        err, ctrl = features_vs_cpu(torch, name, model, cpu[name], x, tag)
+        xb = torch.from_numpy(np.concatenate([x] * (K_FEAT_BATCH // len(x))
+                                             )).to(dev)
+        trunk = getattr(model, "convnet", model)
+        with torch.no_grad(), fp32_strict():
+            enc_ms = time_cuda(torch, lambda: trunk(xb), 3)
+        t0 = time.perf_counter()
+        feats = ib.extract_features(patches, model, mode=mode)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_img = 2 * len(patches)
+        if feats.shape != (len(patches), 2, dim) or \
+                not np.isfinite(feats).all():
+            raise AssertionError(f"{name} features {feats.shape}")
+        log(f"{name} extract_features on the well: {len(patches)} patches "
+            f"x 2 channels = {n_img} images of 224^2 -> {feats.shape} in "
+            f"{wall:.3f} s, {n_img / wall:.1f} images/s end to end (host "
+            f"resize and normalisation included); the device encode alone "
+            f"at batch {K_FEAT_BATCH}: {enc_ms:.3f} ms, "
+            f"{K_FEAT_BATCH / enc_ms * 1e3:.1f} images/s{tag}")
+        out[name] = dict(err=err, control=ctrl, wall=wall,
+                         images_per_s=n_img / wall, encode_ms=enc_ms,
+                         encode_images_per_s=K_FEAT_BATCH / enc_ms * 1e3)
+    out["irv2_mb"] = mb
+    return out
+
+
+def phase_keras(torch, vq, root, dev, card, seg, well):
+    phase("15. Keras weights: the port's HDF5 reader, the Keras U-Net "
+          "(Segment.load, run_segmentation, fit with freeze_encoder), the "
+          "2.5-D model, verify_against_golden, InceptionResNetV2 and "
+          "ResNet50 baselines, on cuda")
+    tag = f" [{card}]"
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    vq.vq_lookup.launches = vq.vq_indices.launches = 0
+    parts = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        parts[name] = time.perf_counter() - t0
+        return result
+
+    unet = timed("unet", keras_unet_part, torch, dev, root, seg, tag)
+    fit = timed("fit", keras_fit_part, torch, dev, root, unet["h5"], tag)
+    multi = timed("multislice", keras_multislice_part, torch, dev, root,
+                  tag)
+    feats = timed("imagenet", keras_imagenet_part, torch, dev, root, well,
+                  tag)
+    launches = {"vq_lookup": vq.vq_lookup.launches,
+                "vq_indices": vq.vq_indices.launches}
+    if any(launches.values()):
+        raise AssertionError(f"a VQ kernel launched on the Keras path: "
+                             f"{launches}")
+    secs = time.perf_counter() - t_phase
+    log(f"phase 15 took {secs:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
+        + f"; vq_lookup launches {launches['vq_lookup']}, vq_indices "
+        f"launches {launches['vq_indices']}")
+    return dict(unet=unet, fit=fit, multi=multi, features=feats, secs=secs,
+                launches=launches)
+
+
 def main() -> int:
     # one card: the first of those visible, so device_count() is what the
     # run uses (set before torch initialises CUDA)
@@ -4733,6 +5406,8 @@ def main() -> int:
             dict(raw=os.path.join(root, "raw"), data=main_run["data"]))
         after = phase_after_latents(torch, vq, root, dev, smi, main_run)
         unet = phase_unet_geometry(torch, vq, root, dev, smi)
+        keras = phase_keras(torch, vq, root, dev, smi, seg,
+                            main_run["data"])
 
     z16 = timed["z16 encode"]
     ti = train_timed["indices"]
@@ -4764,6 +5439,7 @@ def main() -> int:
             r["launches"]["vq_lookup"] for r in other.values()),
         "launches_after_latents_path": after["launches"]["vq_lookup"],
         "launches_unet_training_path": unet["launches"]["vq_lookup"],
+        "launches_keras_path": keras["launches"]["vq_lookup"],
         "z32": {k: timed["z32 encode"][k] for k in
                 ("ms", "ms_per_call", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "bound_share", "rowwise_ms")},
@@ -4797,6 +5473,7 @@ def main() -> int:
             r["launches"]["vq_indices"] for r in other.values()),
         "launches_after_latents_path": after["launches"]["vq_indices"],
         "launches_unet_training_path": unet["launches"]["vq_indices"],
+        "launches_keras_path": keras["launches"]["vq_indices"],
         "flips_vs_plain": {k: indices[k]["flips"] for k in indices},
         "flip_rate_vs_f64": {k: indices[k]["f64_rate"] for k in indices},
     }]
@@ -4840,7 +5517,14 @@ def main() -> int:
         f" s, step check at {unet['step']['grad_ratio']:.3f} of its limit "
         f"(TF32 control {unet['step']['control']:.3f}), long-axis "
         f"extraction {unet['geo']['cells_per_s']:.1f} cells/s, phase 14 "
-        f"{unet['secs']:.1f} s; whole script "
+        f"{unet['secs']:.1f} s; Keras U-Net from .h5: one {SEG_FRAME}^2 "
+        f"frame's device work tiled {keras['unet']['device_ms']['tiled']:.3f}"
+        f" ms, direct {keras['unet']['device_ms']['direct']:.3f} ms, fit step"
+        f" (frozen encoder) {keras['fit']['step_ms']:.3f} ms; baselines "
+        f"end to end InceptionResNetV2 "
+        f"{keras['features']['InceptionResNetV2']['images_per_s']:.1f}, "
+        f"ResNet50 {keras['features']['ResNet50']['images_per_s']:.1f} "
+        f"images/s; phase 15 {keras['secs']:.1f} s; whole script "
         f"{time.perf_counter() - t_start:.1f} s [{smi}]")
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())

@@ -196,3 +196,21 @@ def vq_losses(z, quantized, commitment_cost):
     q_latent = torch.mean((quantized - z.detach()) ** 2)
     st = z + (quantized - z).detach()
     return st, q_latent + commitment_cost * e_latent
+
+
+def load_torchvision_weights(module: nn.Module, weights, what: str,
+                             desc: str) -> None:
+    """Load ``module`` (strict) from a torchvision-format state_dict (a dict
+    of tensors or arrays, or the path of a saved one) whose names are the
+    module's own: keys outside the module (``fc.*``) are ignored, and every
+    key of the module but ``num_batches_tracked`` must be there."""
+    sd = weights if isinstance(weights, dict) \
+        else torch.load(weights, map_location="cpu", weights_only=True)
+    own = module.state_dict()
+    missing = [k for k in own if k not in sd
+               and not k.endswith("num_batches_tracked")]
+    if missing:
+        raise ValueError(f"{what} lacks {len(missing)} {desc} tensors, e.g. "
+                         f"{missing[:3]}")
+    module.load_state_dict({k: torch.as_tensor(sd[k]) if k in sd else v
+                            for k, v in own.items()}, strict=True)

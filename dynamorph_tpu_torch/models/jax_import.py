@@ -6,9 +6,11 @@ nested dicts of **numpy** arrays (``jax.device_get`` of them) and names them
 as the reference does — the mapping of
 ``dynamorph_tpu/models/torch_export.py:48-94`` for the VQ-VAEs, the name
 maps of ``dynamorph_tpu/models/torch_import.py`` read the other way for the
-VAE family (:118-185) and the ResNet encoders (:202-272), and the
-``segmentation_models_pytorch`` layout of ``models/unet.py`` for the U-Net.
-It needs no jax.
+VAE family (:118-185) and the ResNet encoders (:202-272), the
+``segmentation_models_pytorch`` layout of ``models/unet.py`` for the U-Net,
+and the Keras layer names of ``models/unet_keras.py`` and
+``models/inception_resnet_v2.py``, whose JAX trees are flat dicts keyed by
+those names. It needs no jax.
 """
 from __future__ import annotations
 
@@ -149,14 +151,29 @@ def _unet(params, state) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _keras_layers(params, state) -> Dict[str, torch.Tensor]:
+    """A flat ``{Keras layer: conv or batch-norm params}`` tree (the JAX
+    ``KerasUNet``, its multi-slice heads included, and
+    ``InceptionResNetV2``) -> the same names with torch's suffixes."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        if "kernel" in p:
+            _conv(out, name, p)
+        else:
+            _bn(out, name, p, state[name])
+    return out
+
+
 def state_dict_from_jax(params, state, network: str,
                         channel_var=(1.0, 1.0)) -> Dict[str, torch.Tensor]:
     """JAX ``(params, state)`` (numpy leaves) -> the port's ``state_dict``
     for ``network`` ("VQ_VAE_z16", "VQ_VAE_z32", "VAE", "IWAE", "AAE",
-    "ResNet18/50/101/152" or "UNet"; ``channel_var`` is the buffer of the
-    VQ-VAEs and the VAE family)."""
+    "ResNet18/50/101/152", "UNet", "KerasUNet" or "InceptionResNetV2";
+    ``channel_var`` is the buffer of the VQ-VAEs and the VAE family)."""
     if network == "UNet":
         return _unet(params, state)
+    if network in ("KerasUNet", "InceptionResNetV2"):
+        return _keras_layers(params, state)
     if network.startswith("ResNet"):
         return _encode_project(params, state)
     out: Dict[str, torch.Tensor] = {}

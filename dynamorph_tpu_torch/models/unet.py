@@ -146,6 +146,11 @@ class UNet(nn.Module):
             nn.Conv2d(decoder_filters[-1], n_classes, 3, 1, 1))
         self.eval()
 
+    def encoder_parameters(self):
+        """The encoder's parameters (``freeze_encoder`` zeroes their
+        gradients)."""
+        return list(self.encoder.parameters())
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, skips = self.encoder(self.pre_conv(x))
         for block, skip in zip(self.decoder.blocks,
@@ -178,10 +183,17 @@ class MultiSliceUNet(UNet):
         self.eval()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, c, z, xs, ys = x.shape
-        feats = super().forward(x.transpose(1, 2).reshape(b * z, c, xs, ys))
-        merged = feats.reshape(b, z * self.unet_feat, xs, ys)
-        return self.pred_head(F.relu(self.post_conv(merged)))
+        return multislice_forward(self, super().forward, x)
+
+
+def multislice_forward(net: nn.Module, body,
+                       x: torch.Tensor) -> torch.Tensor:
+    """SplitSlice -> ``body`` -> MergeSlices -> ``net.post_conv`` + ReLU ->
+    ``net.pred_head``, for a (B, C, Z, X, Y) input."""
+    b, c, z, xs, ys = x.shape
+    feats = body(x.transpose(1, 2).reshape(b * z, c, xs, ys))
+    merged = feats.reshape(b, z * net.unet_feat, xs, ys)
+    return net.pred_head(F.relu(net.post_conv(merged)))
 
 
 def weighted_ce_loss(logits: torch.Tensor,

@@ -2,8 +2,8 @@
 CUDA tensors: ``getRotationMatrix2D``, ``warpAffine`` (INTER_LINEAR,
 BORDER_CONSTANT 0), ``flip(·, 1)``, the channel-first wrapper
 ``cv2_fn_wrapper`` (``dynamorph_tpu/seg/data.py:47-58``) and the
-one-channel integer ``resize`` of the validation overlays and trajectory
-GIFs.
+one-channel ``resize`` of the validation overlays and trajectory GIFs
+(uint8, uint16) and of the ImageNet baselines' inputs (float64).
 
 ``warp_affine`` reproduces the two arithmetics of the installed OpenCV
 (5.0), which picks one by dtype and channel count:
@@ -275,8 +275,8 @@ def _resize_taps(n_src: int, n_dst: int, clamp: bool, dtype=np.float32):
 
 def resize(img: np.ndarray, dsize: Tuple[int, int],
            interpolation: str = "linear") -> np.ndarray:
-    """``cv2.resize(img, dsize, interpolation=...)`` of a 2-D uint8 or
-    uint16 image (host numpy; ``dsize`` is (width, height)).
+    """``cv2.resize(img, dsize, interpolation=...)`` of a 2-D uint8,
+    uint16 or float64 image (host numpy; ``dsize`` is (width, height)).
 
     - "nearest": source index ``min(floor(d * src / dst), src - 1)``;
     - "linear" on uint8: cv2's fixed point, 11-bit weights
@@ -286,7 +286,14 @@ def resize(img: np.ndarray, dsize: Tuple[int, int],
       >> 16) + 2 >> 2``;
     - "linear" on uint16: float64 positions, float32 fractions ``f``, a
       lerp ``fma(f, S1 - S0, S0)`` in float32 along x, then along y,
-      rounded half to even (cv2 5.0's one-channel 16-bit path).
+      rounded half to even (cv2 5.0's one-channel 16-bit path);
+    - "linear" on float64: cv2 5.0's double path, all in float64: the
+      position ``fma(d + 0.5, scale, -0.5)``, its fraction ``f`` (0 where
+      the position lies off either end, which pins it to the end pixel),
+      and ``fma(f, S1 - S0, S0)`` along x, then along y, each fused
+      multiply-add rounded once (``native/fma.cpp``). Bit-equal to cv2 on
+      images of at least 2 x 2 pixels (a single row or column takes
+      another path in cv2, within 5e-8 relative of this one).
     """
     img = np.asarray(img)
     dst_w, dst_h = dsize
@@ -314,8 +321,11 @@ def resize(img: np.ndarray, dsize: Tuple[int, int],
         s0, s1 = hor[y0] >> 4, hor[y1] >> 4
         v = (((s0 * b0[:, None]) >> 16) + ((s1 * b1[:, None]) >> 16) + 2) >> 2
         return np.clip(v, 0, 255).astype(np.uint8)
+    if img.dtype == np.float64:
+        return _resize_linear_f64(img, dst_w, dst_h)
     if img.dtype != np.uint16:
-        raise TypeError(f"resize takes uint8 or uint16, not {img.dtype}")
+        raise TypeError(f"resize takes uint8, uint16 or float64, not "
+                        f"{img.dtype}")
     x0, x1, fx = _resize_taps(w, dst_w, clamp=False, dtype=np.float64)
     y0, y1, fy = _resize_taps(h, dst_h, clamp=False, dtype=np.float64)
 
@@ -326,3 +336,24 @@ def resize(img: np.ndarray, dsize: Tuple[int, int],
     hor = lerp(fx, im[:, x0], im[:, x1])
     v = lerp(fy[:, None], hor[y0], hor[y1])
     return np.clip(np.rint(v), 0, 65535).astype(np.uint16)
+
+
+def _resize_linear_f64(img: np.ndarray, dst_w: int, dst_h: int
+                       ) -> np.ndarray:
+    """cv2 5.0's float64 INTER_LINEAR (``resize``'s docstring)."""
+    from ..native.fma import fma
+
+    def taps(n_src, n_dst):
+        p = fma(np.arange(n_dst) + 0.5, n_src / n_dst, -0.5)
+        i = np.floor(p).astype(np.int64)
+        f = p - i
+        off = (i < 0) | (i >= n_src - 1)
+        f[off] = 0
+        i = np.clip(i, 0, n_src - 1)
+        return i, np.minimum(i + 1, n_src - 1), f
+
+    h, w = img.shape
+    x0, x1, fx = taps(w, dst_w)
+    y0, y1, fy = taps(h, dst_h)
+    hor = fma(fx, img[:, x1] - img[:, x0], img[:, x0])
+    return fma(fy[:, None], hor[y1] - hor[y0], hor[y0])

@@ -16,6 +16,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..core.constants import CHANNEL_MAX
+from ..io import hdf5
 from ..io.png import write_png
 from ..ops.geometry import channel_first, flip, rotation_matrix_2d, \
     warp_image
@@ -26,10 +27,8 @@ def load_input(file_name: str) -> np.ndarray:
     (reference data.py:17-24)."""
     ext = os.path.splitext(file_name)[1]
     if ext == ".h5":
-        import h5py
-
-        with h5py.File(file_name, "r") as f:
-            dat = np.stack([f[key][()] for key in sorted(f.keys())], 0)
+        with hdf5.File(file_name) as f:
+            dat = np.stack([f.read(key) for key in sorted(f.keys())], 0)
     elif ext == ".npy":
         dat = np.load(file_name)
     else:
@@ -44,11 +43,8 @@ def load_label(file_name: str) -> np.ndarray:
     """A label stack from .npy or .h5 (its first dataset)."""
     ext = os.path.splitext(file_name)[1]
     if ext == ".h5":
-        import h5py
-
-        with h5py.File(file_name, "r") as f:
-            key = list(f.keys())[0]
-            return f[key][()]
+        with hdf5.File(file_name) as f:
+            return f.read(f.keys()[0])
     if ext == ".npy":
         return np.load(file_name)
     raise ValueError(f"Unsupported label {file_name}")

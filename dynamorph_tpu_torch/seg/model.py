@@ -2,10 +2,13 @@
 load), and the 2.5-D ``SegmentWithMultipleSlice`` — the port of
 ``dynamorph_tpu/seg/model.py`` (reference NNsegmentation/models.py:32-258).
 
-Weights are a ``model.pt`` state_dict of ``models/unet.py`` names, as a
-file or inside a directory. A JAX-trained U-Net crosses with
-``models.jax_import.state_dict_from_jax(params, state, "UNet")`` (the
-multi-slice heads included).
+Weights are a ``model.pt`` state_dict, as a file or inside a directory, or
+a reference-trained Keras ``.h5``/``.hdf5`` (``seg/keras_import.py``). Two
+architectures serve: ``models/unet.py`` (a new model, and the JAX
+package's own U-Net, bridged with
+``models.jax_import.state_dict_from_jax(params, state, "UNet")``) and the
+Keras graph of ``models/unet_keras.py``, to which ``load`` switches for a
+Keras file or for a ``model.pt`` of its names (``bn_data.*``).
 
 Training (``fit``, reference models.py:98-156) is the JAX package's: Adam
 at 1e-3 on the weighted cross-entropy of the logits, the epoch order from
@@ -16,7 +19,9 @@ per validated epoch written on an ``io.prefetch.AsyncWriter`` thread, and
 the validation's summed cross-entropy, ROC-AUC and F1 on the raw class-0
 logits (``seg/metrics.py``, on the device). The dataset stays on the device
 across epochs when it fits. The step runs forward, backward and Adam inside
-``fp32_strict``.
+``fp32_strict``. With the Keras graph, ``bn_data``'s fixed gamma is no
+parameter of the optimizer, and ``freeze_encoder`` zeroes the gradients of
+its encoder's layers (``encoder_layer_names``), as the JAX step does.
 """
 from __future__ import annotations
 
@@ -30,18 +35,13 @@ import torch
 from ..core.constants import CHANNEL_MAX
 from ..core.device import fp32_strict, resolve_device
 from ..io.prefetch import AsyncWriter
+from ..models.common import load_torchvision_weights
 from ..models.jax_import import load_reference_checkpoint
 from ..models.unet import MultiSliceUNet, UNet, weighted_ce_loss
+from ..models.unet_keras import KerasUNet, MultiSliceKerasUNet
+from . import keras_import
 from .data import preprocess
 from .metrics import f1_score, roc_auc_score
-
-_KERAS_NOT_PORTED = (
-    "{path} is a Keras weight file: importing reference-trained Keras "
-    "U-Nets (models/unet_keras.py, seg/keras_import.py) is not ported yet "
-    "(ROADMAP queue, the .h5 weight importers); use "
-    "dynamorph_tpu.seg.model.Segment for it")
-
-_ENCODER_PREFIX = "encoder."
 
 
 class Segment:
@@ -84,22 +84,14 @@ class Segment:
         self.net.to(self.device)
         self._lr = 1e-3  # keras Adam default
 
-    def _build_net(self) -> UNet:
-        return UNet(n_channels=self.n_channels, n_classes=self.n_classes)
+    def _build_net(self, keras: bool = False):
+        """The torchvision-layout U-Net, or the Keras graph."""
+        cls = KerasUNet if keras else UNet
+        return cls(n_channels=self.n_channels, n_classes=self.n_classes)
 
     def _load_encoder_weights(self, encoder_weights) -> None:
-        sd = encoder_weights if isinstance(encoder_weights, dict) \
-            else torch.load(encoder_weights, map_location="cpu",
-                            weights_only=True)
-        own = self.net.encoder.state_dict()
-        missing = [k for k in own if k not in sd
-                   and not k.endswith("num_batches_tracked")]
-        if missing:
-            raise ValueError(f"encoder_weights lacks {len(missing)} resnet34 "
-                             f"encoder tensors, e.g. {missing[:3]}")
-        new = {k: torch.as_tensor(sd[k]) if k in sd else v
-               for k, v in own.items()}
-        self.net.encoder.load_state_dict(new, strict=True)
+        load_torchvision_weights(self.net.encoder, encoder_weights,
+                                 "encoder_weights", "resnet34 encoder")
 
     # -- inference -----------------------------------------------------
     def probabilities(self, x: torch.Tensor) -> torch.Tensor:
@@ -148,20 +140,19 @@ class Segment:
     def _make_step(self, lr: float):
         """Adam (0.9, 0.999, eps 1e-8: ``optax.adam``'s update) and the
         train step ``step(x, y) -> loss`` (a device scalar)."""
-        params = list(self.net.parameters())
+        params = [p for p in self.net.parameters() if p.requires_grad]
         optimizer = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999),
                                      eps=1e-8)
-        encoder = [p for n, p in self.net.named_parameters()
-                   if n.startswith(_ENCODER_PREFIX)]
+        encoder = [p for p in self.net.encoder_parameters()
+                   if p.requires_grad] if self.freeze_encoder else []
 
         def step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
             optimizer.zero_grad(set_to_none=False)
             with fp32_strict():
                 loss = weighted_ce_loss(self.net.apply(x, train=True), y)
                 loss.backward()
-                if self.freeze_encoder:
-                    for p in encoder:
-                        p.grad.zero_()
+                for p in encoder:
+                    p.grad.zero_()
                 optimizer.step()
             return loss.detach()
 
@@ -271,10 +262,14 @@ class Segment:
         _save_state(self.net.state_dict(), path)
 
     def load(self, path: str) -> None:
-        """Load a ``model.pt`` state_dict (strict), given as the file or a
-        directory that holds it."""
-        if path.endswith((".h5", ".hdf5")):
-            raise NotImplementedError(_KERAS_NOT_PORTED.format(path=path))
+        """Load weights (strict): a reference-trained Keras ``.h5`` /
+        ``.hdf5`` (NNsegmentation/models.py:200-202), imported weight for
+        weight into the Keras graph, or a ``model.pt`` state_dict given as
+        the file or a directory that holds it, into the architecture its
+        names belong to."""
+        if keras_import.is_keras_weight_file(path):
+            self._adopt(self._import_keras(path))
+            return
         if os.path.isdir(path):
             if not os.path.exists(os.path.join(path, "model.pt")):
                 raise ValueError(
@@ -284,8 +279,25 @@ class Segment:
                     "dynamorph_tpu_torch.models.jax_import."
                     "state_dict_from_jax(params, state, 'UNet')")
             path = os.path.join(path, "model.pt")
-        self.net.load_state_dict(load_reference_checkpoint(path),
-                                 strict=True)
+        self._adopt(load_reference_checkpoint(path))
+
+    def _import_keras(self, path: str) -> Dict[str, torch.Tensor]:
+        return keras_import.import_keras_unet(
+            path, n_channels=self.n_channels, n_classes=self.n_classes)
+
+    def _adopt(self, sd: Dict[str, torch.Tensor]) -> None:
+        """Load ``sd`` strict, first rebuilding the network where ``sd``
+        belongs to the other architecture (the Keras graph's names begin
+        ``bn_data.*``) or to other dims (``_take_dims``)."""
+        keras = "bn_data.running_mean" in sd
+        if self._take_dims(sd) or keras != isinstance(self.net, KerasUNet):
+            with torch.random.fork_rng(devices=[]):
+                self.net = self._build_net(keras).to(self.device)
+        self.net.load_state_dict(sd, strict=True)
+
+    def _take_dims(self, sd: Dict[str, torch.Tensor]) -> bool:
+        """Adopt the dims that ``sd`` fixes; True if they changed."""
+        return False
 
 
 def _save_state(state: Dict[str, torch.Tensor], path: str) -> None:
@@ -309,9 +321,30 @@ class SegmentWithMultipleSlice(Segment):
     def __init__(self, unet_feat: int = 32, **kwargs):
         self.unet_feat = unet_feat
         super().__init__(**kwargs)
+        self.n_slices = self.input_shape[1]
 
-    def _build_net(self) -> MultiSliceUNet:
-        return MultiSliceUNet(n_channels=self.n_channels,
-                              n_slices=self.input_shape[1],
-                              n_classes=self.n_classes,
-                              unet_feat=self.unet_feat)
+    def _build_net(self, keras: bool = False):
+        cls = MultiSliceKerasUNet if keras else MultiSliceUNet
+        return cls(n_channels=self.n_channels, n_slices=self.input_shape[1],
+                   n_classes=self.n_classes, unet_feat=self.unet_feat)
+
+    def _import_keras(self, path: str) -> Dict[str, torch.Tensor]:
+        """A 2.5-D ``.h5`` (reference NNsegmentation/models.py:206-258),
+        read once: its dims must be this model's (its ``unet_feat`` is
+        taken from the file)."""
+        layers = keras_import.read_keras_layer_weights(path)
+        fc, fz, ff, fk = keras_import.multislice_dims_from_file(
+            path, layers=layers)
+        if (fc, fz, fk) != (self.n_channels, self.n_slices, self.n_classes):
+            raise ValueError(
+                f"{path} encodes (n_channels, n_slices, n_classes)="
+                f"{(fc, fz, fk)} but this model was built with "
+                f"{(self.n_channels, self.n_slices, self.n_classes)}")
+        return keras_import.import_keras_unet_multislice(path, layers=layers)
+
+    def _take_dims(self, sd: Dict[str, torch.Tensor]) -> bool:
+        """``unet_feat`` from the weights' ``post_conv``."""
+        feat = int(sd["post_conv.weight"].shape[0]) \
+            if "post_conv.weight" in sd else self.unet_feat
+        changed, self.unet_feat = feat != self.unet_feat, feat
+        return changed

@@ -14,18 +14,20 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "dynamorph_tpu_torch"
 
 # Imports every port module (and chip_smoke.py) with jax and the JAX package
-# blocked, and sklearn, cv2 and matplotlib, which the card's machine lacks
-# (matplotlib and cv2 at least once) or which no port module may import at
-# module level. The blocker matches "dynamorph_tpu" and "dynamorph_tpu.*"
+# blocked, and sklearn, cv2, matplotlib, h5py, tensorflow and torchvision,
+# which the card's machine lacks (matplotlib, cv2 and h5py at least once) or
+# which no port module may import at module level. The blocker matches "dynamorph_tpu" and "dynamorph_tpu.*"
 # exactly: a prefix test would also block dynamorph_tpu_torch.
 _BLOCKED_IMPORT = r"""
 import importlib, importlib.abc, pkgutil, sys
 sys.modules["jax"] = None
+_HOST_ONLY = ("sklearn", "cv2", "matplotlib", "h5py", "tensorflow",
+              "torchvision")
 
 class _Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name == "dynamorph_tpu" or name.startswith("dynamorph_tpu.") \
-                or name.split(".")[0] in ("sklearn", "cv2", "matplotlib"):
+                or name.split(".")[0] in _HOST_ONLY:
             raise ImportError("blocked: " + name)
         return None
 
@@ -40,8 +42,7 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 assert sys.modules["jax"] is None
-assert not [m for m in sys.modules
-            if m.split(".")[0] in ("sklearn", "cv2", "matplotlib")]
+assert not [m for m in sys.modules if m.split(".")[0] in _HOST_ONLY]
 print(" ".join(names))
 print(len(names))
 """
@@ -58,6 +59,10 @@ _SLICE_MODULES = [
     "dynamorph_tpu_torch.analysis.state_clustering",
     "dynamorph_tpu_torch.analysis.recon_eval",
     "dynamorph_tpu_torch.analysis.pc_samples",
+    "dynamorph_tpu_torch.io.hdf5", "dynamorph_tpu_torch.models.unet_keras",
+    "dynamorph_tpu_torch.models.inception_resnet_v2",
+    "dynamorph_tpu_torch.seg.keras_import",
+    "dynamorph_tpu_torch.analysis.imagenet_baseline",
 ]
 
 
@@ -112,6 +117,23 @@ def test_no_cv2_import_in_port(path):
     bad += [node.module for node in ast.walk(tree)
             if isinstance(node, ast.ImportFrom) and node.level == 0
             and (node.module or "").split(".")[0] == "cv2"]
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_h5py_tensorflow_or_torchvision_import(path):
+    """Neither the port nor chip_smoke.py imports h5py, tensorflow or
+    torchvision, none of which the card's machine has: HDF5 is read by
+    io/hdf5.py (and written by chip_smoke.py's own writer), Keras and
+    torchvision weights are mapped by name."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for a in node.names]
+    names += [node.module or "" for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.level == 0]
+    bad = [m for m in names
+           if m.split(".")[0] in ("h5py", "tensorflow", "torchvision")]
     assert not bad, f"{path} imports {bad}"
 
 

@@ -380,9 +380,27 @@ def test_load_refuses_orbax_dir(site_dirs):
 
 
 def test_load_refuses_keras_h5(tmp_path):
-    with pytest.raises(NotImplementedError, match="keras_import"):
-        Segment(input_shape=(2, WINDOW, WINDOW), device="cpu").load(
-            str(tmp_path / "weights.h5"))
+    """A Keras ``.h5`` is no longer refused as a format: ``Segment.load``
+    imports a reference U-Net's into the Keras graph
+    (``tests/test_torch_keras_unet.py`` holds it against the JAX package),
+    and refuses, with the JAX package's ValueError, an ``.h5`` that holds
+    no such model."""
+    import h5py
+
+    from dynamorph_tpu_torch.models.unet_keras import KerasUNet
+    from test_keras_import import write_keras_h5
+    from test_torch_keras_unet import keras_unet_weights
+
+    path = str(tmp_path / "weights.h5")
+    write_keras_h5(path, keras_unet_weights(6))
+    model = Segment(input_shape=(2, WINDOW, WINDOW), device="cpu")
+    model.load(path)
+    assert isinstance(model.net, KerasUNet)
+    other = str(tmp_path / "other.h5")
+    with h5py.File(other, "w") as f:
+        f.create_dataset("dense/dense/kernel:0", data=np.zeros((4, 4)))
+    with pytest.raises(ValueError, match="missing layer 'pre_conv'"):
+        Segment(input_shape=(2, WINDOW, WINDOW), device="cpu").load(other)
 
 
 def test_time_slices_refused(models):
@@ -565,7 +583,7 @@ def _max_abs(sd):
                if v.dtype.is_floating_point)
 
 
-def _adam_checked(pm, checks):
+def _adam_checked(pm, checks, null=()):
     """``pm._make_step`` wrapped so that the first two train steps (the
     second is the first to read beta1 and beta2) are held to Adam
     (``optax.adam``'s 0.9, 0.999, eps 1e-8) from the port's own moments
@@ -578,14 +596,22 @@ def _adam_checked(pm, checks):
     step's weights, on the step's batch, through the weighted
     cross-entropy written out here: within 2% of its norm a tensor (the
     fp32 train-mode batch norm of the 1 x 1 bottleneck over four values
-    costs 1%). Appends one record a step to ``checks``: its learning rate
-    and, for the checked steps, its worst error against the bound and the
-    count of parameters it moved."""
+    costs 1%). A frozen parameter's gradient must be 0; a parameter named
+    in ``null`` (a bias feeding a train-mode batch norm, whose exact
+    gradient is 0) must have a gradient under 1e-6 of the step's largest
+    float64 gradient norm, in both precisions. Appends one record a step
+    to ``checks``: its learning rate and, for the checked steps, its worst
+    error against the bound and the count of parameters it moved."""
     make_step = pm._make_step
 
     def spy(lr):
         opt, step = make_step(lr)
-        named = list(pm.net.named_parameters())
+        # a fixed weight (the Keras graph's bn_data gamma) is no parameter
+        # of the optimizer; a frozen one has its gradient zeroed
+        named = [(n, p) for n, p in pm.net.named_parameters()
+                 if p.requires_grad]
+        frozen = {id(p) for p in pm.net.encoder_parameters()} \
+            if pm.freeze_encoder else set()
         net64 = None
 
         def checked(x, y):
@@ -628,8 +654,17 @@ def _adam_checked(pm, checks):
                 logp = torch.log_softmax(net64.apply(xs, train=True), 1)
                 loss64 = torch.mean(
                     -torch.sum(ys[:, :-1] * logp, 1) * ys[:, -1])
-                grads = torch.autograd.grad(loss64, list(net64.parameters()))
+                grads = torch.autograd.grad(loss64, [
+                    p for p in net64.parameters() if p.requires_grad])
+                g_top = max(float(g.norm()) for g in grads)
                 for (name, p), g in zip(named, grads):
+                    if id(p) in frozen:
+                        assert not p.grad.any(), name
+                        continue
+                    if name in null:
+                        assert max(float(g.norm()), float(p.grad.norm())) \
+                            <= 1e-6 * g_top, name
+                        continue
                     rel = float((p.grad.double() - g).norm() / g.norm())
                     assert rel <= 2e-2, (name, rel)
                 loss64 = float(loss64.detach())
