@@ -221,6 +221,31 @@ passed prints the final ``{"ok": true, ...}`` line:
    and of the device encode alone at batch 128), card vs CPU on 16 images
    within 1e-5 of max |feature| beside a TF32 control. Launches neither VQ
    kernel.
+16. multi-rank (Slice F), every rank a process started by the script
+   (``rank_main``): with two or more cards NCCL, one rank a card (at most
+   4); with one card two ranks share it over gloo, whose CUDA tensors
+   cross through host memory, and one NCCL rank runs the trainer once
+   too. ``run_training --multihost`` for VQ_VAE_z32 at batch 768 (768 /
+   world rows a rank) with the trajectory-sharded ring loss on phase 5's
+   patches, 2 epochs of one training and one validation batch: the
+   histories the same on every rank, one vq_indices launch a training
+   step and one vq_lookup launch a validation step a rank, metrics.jsonl
+   and model.pt written by rank 0 alone, model.pt loaded strict by
+   ``run_vae -m process``; then the data-parallel step timed at batch 768
+   (ms a rank, the collectives' share, the bytes a ring step sends). The
+   data-parallel z32 step (3 seeded batches of 8 full-width patches, Adam)
+   and the ResNet18 all-triplet step on the gathered batch against one
+   process on the card: the first step's losses and running buffers at
+   phase 6's limits, and every gradient against float64 on the CPU on the
+   fp32 step's side of every kink at phase 6's rule (the ranks' error at
+   most 3 x one process's + 1e-5), with TF32 controls that must land over
+   it. ``run_pipeline --multihost`` (process, pca) over two wells: each
+   rank its own well, the latents and the PCA equal to one process's, the
+   PCA fitted once on rank 0, and a failure planted on rank 1 failing every
+   rank. ``fit_pca_distributed`` on the plate (55,296 x 4,096) against the
+   SVD fit and float64, and ``encode_patches`` fanned out over the local
+   devices (on one card: two chunks on it) against one device. Each
+   kernel timed at its per-rank shape.
    Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and the
    ``{"ok": true, ...}`` line.
 """
@@ -5350,10 +5375,916 @@ def phase_keras(torch, vq, root, dev, card, seg, well):
                 launches=launches)
 
 
+# ---------------------------------------------------------------- phase 16
+
+MR_MAX_WORLD = 4
+MR_CHECK = 8               # the global batch of the step checks
+MR_STEPS = 3               # seeded batches of the z32 step check
+MR_EPOCHS = 2              # run_training --multihost on phase 5's patches
+MR_VAL = 0.5               # 768 of its 1,536 patches: one full val batch
+MR_TIMED = 5               # timed data-parallel steps at batch 768
+MR_TIMEOUT = 300           # s a launch of ranks may take
+MR_THREADS = 3             # host threads a rank (8 cores, 2 ranks + main)
+MR_PIPE_WELLS = ("C5", "D3")
+HERE = os.path.dirname(os.path.abspath(__file__))
+# the cards visible when main() started, before it kept only the first
+_VISIBLE = {"cuda": None}
+RANK_BOOT = ("import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
+             "sys.exit(chip_smoke.rank_main(sys.argv[1:]))")
+
+
+def visible_cards():
+    """The indices of the cards this run may use: CUDA_VISIBLE_DEVICES as
+    main() found it, else every card ``nvidia-smi -L`` lists."""
+    if _VISIBLE["cuda"]:
+        return [v for v in _VISIBLE["cuda"].split(",") if v.strip()]
+    res = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return [str(i) for i, line in enumerate(res.stdout.splitlines())
+            if line.startswith("GPU ")]
+
+
+def free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def start_ranks(job, world, root, cards, extra=(), tag=""):
+    """Start ``world`` processes of ``rank_main(job, ...)``, one a rank, on
+    the cards ``cards``; each rank's stderr goes to
+    ``<root>/rank_<job><tag>_<r>.log``. ``wait_ranks`` collects them."""
+    port = free_port()
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES=",".join(cards),
+               OMP_NUM_THREADS=str(MR_THREADS))
+    boot = RANK_BOOT.format(here=HERE)
+    logs = [os.path.join(root, f"rank_{job}{tag}_{r}.log")
+            for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", boot, job, str(r), str(world),
+                 str(port), root, *extra], env=env, cwd=HERE,
+                stdout=subprocess.PIPE, stderr=err, text=True))
+    return job, procs, logs, time.perf_counter()
+
+
+def wait_ranks(started):
+    """[(exit code, the rank's result dict or None)] and the log paths of
+    ranks from ``start_ranks``. Ranks still running MR_TIMEOUT s after
+    their start are killed, and it raises."""
+    job, procs, logs, t0 = started
+    outs = []
+    try:
+        for p in procs:
+            left = MR_TIMEOUT - (time.perf_counter() - t0)
+            outs.append(p.communicate(timeout=max(left, 1.0))[0])
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"the ranks of '{job}' ran past {MR_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith("RANK_RESULT:")]
+        if p.returncode == 0 and not lines:
+            raise AssertionError(f"rank {r} of '{job}' printed no result")
+        res.append((p.returncode, json.loads(lines[-1][12:])
+                    if lines else None))
+    return res, logs
+
+
+def run_ranks(job, world, root, cards, extra=(), tag=""):
+    return wait_ranks(start_ranks(job, world, root, cards, extra, tag))
+
+
+def log_tail(path, n=20):
+    with open(path) as f:
+        return "".join(f.readlines()[-n:])
+
+
+def rank_main(argv) -> int:
+    """One rank of phase 16, started by ``run_ranks``: ``job rank world
+    port root [args]``. Prints ``RANK_RESULT: {json}`` and returns 0, or
+    raises."""
+    job, rank, world, port, root = (argv[0], int(argv[1]), int(argv[2]),
+                                    int(argv[3]), argv[4])
+    extra = argv[5:]
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("a rank of phase 16 found no card")
+    torch.set_num_threads(MR_THREADS)
+    from dynamorph_tpu_torch.core import mesh
+    from dynamorph_tpu_torch.ops import vq
+
+    flags = ["--multihost", "--coordinator", f"127.0.0.1:{port}",
+             "--num-processes", str(world), "--process-id", str(rank)]
+    vq.vq_indices.launches = vq.vq_lookup.launches = 0
+    if job == "train":
+        from dynamorph_tpu_torch.cli import run_training
+
+        t0 = time.perf_counter()
+        _, hist = run_training.main(["-c", extra[0], *flags])
+        torch.cuda.synchronize()
+        out = dict(hist=hist, wall=time.perf_counter() - t0)
+        out["launches"] = dict(vq_indices=vq.vq_indices.launches,
+                               vq_lookup=vq.vq_lookup.launches)
+        out["timing"] = mr_timed_steps(torch, torch.device("cuda"))
+    elif job == "steps":
+        mesh.init_multihost(f"127.0.0.1:{port}", world, rank)
+        comm = mesh.ProcessGroupComm()
+        inp = torch.load(os.path.join(root, "mr_inputs.pt"),
+                         weights_only=False)
+        dev = torch.device("cuda")
+        res = dict(z32=mr_z32_steps(torch, comm, inp, dev),
+                   triplet=mr_triplet_step(torch, comm, inp, dev))
+        if rank == 0:
+            torch.save(res, os.path.join(root, "mr_ranks.pt"))
+        out = dict(losses=res["z32"]["losses"],
+                   triplet_losses=res["triplet"]["losses"])
+    elif job == "pipeline":
+        from dynamorph_tpu_torch.cli import run_pipeline
+        from dynamorph_tpu_torch.pipeline import orchestrator
+
+        if extra[1] == "fail" and rank == 1:
+            def planted(*a, **k):
+                raise RuntimeError("a stage failure planted on rank 1")
+
+            orchestrator.process_vae = planted
+        executed = run_pipeline.main(["-c", extra[0], "--stages", "process",
+                                      "pca", *flags])
+        torch.cuda.synchronize()
+        out = dict(executed=list(executed.values())[0],
+                   launches=vq.vq_lookup.launches,
+                   indices=vq.vq_indices.launches)
+    else:
+        raise ValueError(f"unknown job {job}")
+    out.update(rank=rank, world=dist.get_world_size(),
+               backend=dist.get_backend(), device=str(mesh.rank_device()),
+               card=torch.cuda.get_device_name(mesh.rank_device()))
+    print("RANK_RESULT:" + json.dumps(out), flush=True)
+    mesh.shutdown_multihost()
+    return 0
+
+
+def mr_timed_steps(torch, dev):
+    """The data-parallel z32 step at batch 768 (768 / world rows a rank,
+    trajectory-packed, the ring loss, augmentation on) on resident rows:
+    ms a step (host clock around MR_TIMED steps and a synchronise), then
+    3 steps with every collective timed between two synchronises (its
+    share of those steps), and the bytes a rank sends a ring step."""
+    from dynamorph_tpu_torch.core import mesh
+    from dynamorph_tpu_torch.models import VQVAEz32
+    from dynamorph_tpu_torch.train import sharded_loss as SL
+    from dynamorph_tpu_torch.train.data import zscore
+    from dynamorph_tpu_torch.train.steps import make_train_step
+
+    comm = mesh.ProcessGroupComm()
+    world, rank = comm.world, comm.rank
+    b = TRAIN_BATCH // world
+    rel = relation_block(TRAIN_BATCH)
+    packed = SL.pack_trajectories(
+        np.arange(TRAIN_BATCH),
+        SL.trajectory_ids_from_relations(rel, TRAIN_BATCH), world)
+    rows = packed[rank * b:(rank + 1) * b]
+    block = torch.from_numpy(SL.blockdiag_relations(
+        rel, packed, world)[rank * b:(rank + 1) * b]).to(dev)
+    x = torch.from_numpy(zscore(blob_patches(np.random.RandomState(
+        SEED + 16), TRAIN_BATCH)[rows]).astype(np.float32)).to(dev)
+    torch.manual_seed(SEED + 16)
+    model = VQVAEz32(**TRAIN_NET).to(dev)
+    mesh.broadcast_state(model, comm)
+    model.tm_loss_fn = SL.make_traj_sharded_tm_loss(comm)
+    step = make_train_step(
+        model, torch.optim.Adam(model.parameters(), lr=1e-4), augment=True,
+        generator=torch.Generator(device=dev).manual_seed(SEED), comm=comm)
+    for _ in range(2):
+        step(x, block)
+    torch.cuda.synchronize()
+    mesh.barrier("timed steps")
+    t0 = time.perf_counter()
+    for _ in range(MR_TIMED):
+        step(x, block)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / MR_TIMED * 1e3
+    spent = [0.0]
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t
+            return out
+        return call
+
+    for name in ("all_reduce", "all_gather", "broadcast", "shift"):
+        setattr(comm, name, timed(getattr(comm, name)))
+    sent = comm.sent_bytes
+    mesh.barrier("timed collectives")
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step(x, block)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ring_steps = 3 * 2 * (world - 1)     # forward and gradient, each step
+    return dict(step_ms=step_ms, rows=b, collective_ms=spent[0] / 3 * 1e3,
+                collective_share=spent[0] / wall,
+                ring_bytes=(comm.sent_bytes - sent) / ring_steps
+                if ring_steps else 0,
+                host_staged=comm.stages_through_host)
+
+
+def mr_grads(torch, model, comm, forward, masks=None, replay=False,
+             tf32=False):
+    """One forward (``forward(model)`` returns the losses) and backward in
+    ``comm``'s data-parallel scope (none for None), the gradients averaged
+    over the ranks: (losses, {weight: float64 gradient on the host}).
+    ``masks`` records or, with ``replay``, replays the kinks
+    (``kink_branches``); ``tf32`` runs the backward outside
+    ``fp32_strict`` with TF32 on (the control: the models' forward passes
+    are strict inside ``apply``)."""
+    from dynamorph_tpu_torch.core.device import fp32_strict
+    from dynamorph_tpu_torch.core.mesh import (average_gradients,
+                                               collective_scope)
+    from dynamorph_tpu_torch.nn.batchnorm import cross_rank_batch_norm
+
+    nothing = contextlib.nullcontext
+    flags = torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32
+    if tf32:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+    model.zero_grad(set_to_none=True)
+    try:
+        with collective_scope(comm), \
+                cross_rank_batch_norm(model) if comm else nothing(), \
+                nothing() if tf32 else fp32_strict(), \
+                kink_branches(torch, masks, replay) if masks is not None \
+                else nothing():
+            losses = forward(model)
+            losses["total_loss"].backward()
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = flags
+    if comm is not None:
+        average_gradients(model.parameters(), comm)
+    return ({k: float(v.detach()) for k, v in losses.items()},
+            {n: p.grad.detach().cpu().double()
+             for n, p in model.named_parameters()
+             if p.grad is not None and n.endswith(".weight")})
+
+
+def mr_rows(inp, comm):
+    """This rank's rows of the packed global batch, and its relation: the
+    ranks' (b, b) diagonal block for the ring loss, or for one process the
+    dense (B, B) relation of the packed batch with the blocks the ranks do
+    not see (their cross-rank pairs, negatives in the ring loss) zeroed."""
+    from dynamorph_tpu_torch.train import sharded_loss as SL
+
+    packed, world = inp["packed"], inp["world"]
+    b = MR_CHECK // world
+    if comm is None:
+        rel = inp["rel"][packed][:, packed]
+        own = np.arange(MR_CHECK) // b
+        return packed, np.where(own[:, None] == own[None, :], rel, 0)
+    r = comm.rank
+    return (packed[r * b:(r + 1) * b],
+            SL.blockdiag_relations(inp["rel"], packed,
+                                   world)[r * b:(r + 1) * b])
+
+
+def mr_z32_steps(torch, comm, inp, dev):
+    """MR_STEPS data-parallel z32 train steps at full width (the trainer's
+    step, Adam, no augmentation) on seeded batches of MR_CHECK (one process
+    with ``comm`` None): each step's losses, the running buffers after the
+    first, and each weight's gradient error against float64 on the CPU
+    from the same weights, on the fp32 step's side of every kink and with
+    its codes (``mr_grads``), pooled over the steps and for the first
+    alone; and a control step whose backward runs in TF32."""
+    from dynamorph_tpu_torch.models import VQVAEz32
+    from dynamorph_tpu_torch.models import vqvae as vqvae_mod
+    from dynamorph_tpu_torch.train import sharded_loss as SL
+    from dynamorph_tpu_torch.train.steps import make_train_step
+
+    rows, rel = mr_rows(inp, comm)
+    real = vqvae_mod.vq_indices
+
+    def build(state, device, dtype=torch.float32):
+        m = VQVAEz32(**TRAIN_NET)
+        m.load_state_dict(state)
+        m = m.to(device=device, dtype=dtype)
+        if comm is not None:
+            m.tm_loss_fn = SL.make_traj_sharded_tm_loss(comm)
+        return m
+
+    def forward(x, mask):
+        maskf = torch.as_tensor(mask).to(x.device, x.dtype)
+        return lambda m: m.apply(x, train=True, time_matching_mat=rel,
+                                 batch_mask=maskf)[1]
+
+    def replayed(idx):
+        return lambda z, cb, precision="highest": idx.to(z.device)
+
+    model = build(inp["z32"], dev)
+    step = make_train_step(model, torch.optim.Adam(
+        model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8),
+        augment=False, comm=comm)
+    losses, g32s, g64s, flips = [], [], [], 0
+    for i in range(MR_STEPS):
+        x = torch.from_numpy(inp["x"][i][rows]).to(dev)
+        mask = inp["mask"][i][rows]
+        before = {k: v.detach().clone() for k, v in
+                  model.state_dict().items()}
+        masks, seen = [], {}
+
+        def recording(z, cb, precision="highest"):
+            seen["idx"] = real(z, cb, precision=precision)
+            return seen["idx"]
+
+        vqvae_mod.vq_indices = recording
+        try:
+            with kink_branches(torch, masks, False):
+                l32 = step(x, rel, mask)
+        finally:
+            vqvae_mod.vq_indices = real
+        losses.append({k: float(v) for k, v in l32.items()})
+        g32s.append({n: p.grad.detach().cpu().double()
+                     for n, p in model.named_parameters()
+                     if n.endswith(".weight")})
+        if i == 0:
+            bufs = {n: b.detach().cpu().clone()
+                    for n, b in model.named_buffers() if "running" in n}
+            first = (before, x, mask, seen["idx"], masks)
+        f64 = build(before, "cpu", torch.float64)
+        vqvae_mod.vq_indices = replayed(seen["idx"])
+        try:
+            g64s.append(mr_grads(torch, f64, comm,
+                                 forward(x.cpu().double(), mask),
+                                 masks=masks, replay=True)[1])
+        finally:
+            vqvae_mod.vq_indices = real
+    before, x, mask, idx, masks = first
+    vqvae_mod.vq_indices = replayed(idx)
+    try:
+        _, g_ctrl = mr_grads(torch, build(before, dev), comm,
+                             forward(x, mask), tf32=True)
+    finally:
+        vqvae_mod.vq_indices = real
+    return dict(losses=losses, bufs=bufs, err=pooled_errors(g32s, g64s),
+                err_first=pooled_errors(g32s[:1], g64s[:1]),
+                err_control=pooled_errors([g_ctrl], g64s[:1]),
+                kink_choices=sum(int(m.numel()) for m in masks))
+
+
+def pooled_errors(fp32, f64):
+    """Each weight's relative L2 error, its gradients over the steps
+    concatenated."""
+    import torch
+
+    out = {}
+    for n in fp32[0]:
+        a = torch.cat([g[n].reshape(-1) for g in fp32])
+        b = torch.cat([g[n].reshape(-1) for g in f64])
+        out[n] = float(torch.norm(a - b) / max(float(torch.norm(b)), 1e-30))
+    return out
+
+
+def mr_triplet_step(torch, comm, inp, dev):
+    """One data-parallel ResNet18 step with the all-triplet miner on the
+    gathered batch (one process with ``comm`` None), its gradients against
+    float64 on the CPU on the fp32 step's side of every kink, and a TF32
+    control."""
+    from dynamorph_tpu_torch.train.steps import make_triplet_steps
+
+    world, rank = (1, 0) if comm is None else (comm.world, comm.rank)
+    b = MR_CHECK // world
+    x = torch.from_numpy(inp["tx"][rank * b:(rank + 1) * b])
+    labels = torch.from_numpy(inp["labels"][rank * b:(rank + 1) * b])
+
+    def build(device, dtype=torch.float32):
+        m = e1_model("ResNet18")
+        m.load_state_dict(inp["triplet"])
+        return m.to(device=device, dtype=dtype)
+
+    model = build(dev)
+    step, _ = make_triplet_steps(model, torch.optim.Adam(
+        model.parameters(), lr=1e-4), comm=comm)
+    masks = []
+    with kink_branches(torch, masks, False):
+        l32 = step(x.to(dev), labels.to(dev))
+    g32 = {n: p.grad.detach().cpu().double()
+           for n, p in model.named_parameters()
+           if p.grad is not None and n.endswith(".weight")}
+    _, g64 = mr_grads(torch, build("cpu", torch.float64), comm,
+                      lambda m: m.apply(x.double(), labels, train=True)[1],
+                      masks=masks, replay=True)
+    _, g_ctrl = mr_grads(torch, build(dev), comm,
+                         lambda m: m.apply(x.to(dev), labels.to(dev),
+                                           train=True)[1], tf32=True)
+    return dict(losses={k: float(v) for k, v in l32.items()},
+                err=pooled_errors([g32], [g64]),
+                err_control=pooled_errors([g_ctrl], [g64]))
+
+
+def mr_inputs(torch, world):
+    """The step checks' seeded inputs: MR_STEPS batches of MR_CHECK
+    full-width z32 patches (two trajectories of 4) with masks, their
+    packed order for ``world`` ranks, z32 weights, and MR_CHECK ResNet18
+    patches in 4 labels with seeded weights (batch norm off the
+    identity)."""
+    from dynamorph_tpu_torch.models import VQVAEz32
+    from dynamorph_tpu_torch.train import sharded_loss as SL
+    from dynamorph_tpu_torch.train.data import zscore
+
+    rng = np.random.RandomState(SEED + 16)
+    rel = relation_block(MR_CHECK, 4)
+    torch.manual_seed(SEED + 16)
+    z32 = VQVAEz32(**TRAIN_NET)
+    return dict(
+        world=world, rel=rel,
+        packed=SL.pack_trajectories(
+            np.arange(MR_CHECK),
+            SL.trajectory_ids_from_relations(rel, MR_CHECK), world),
+        x=[zscore(blob_patches(rng, MR_CHECK)).astype(np.float32)
+           for _ in range(MR_STEPS)],
+        mask=[(rng.rand(MR_CHECK, 1, 128, 128) > 0.3).astype(np.uint8)
+              for _ in range(MR_STEPS)],
+        z32=z32.state_dict(),
+        tx=zscore(blob_patches(rng, MR_CHECK)).astype(np.float32),
+        labels=np.repeat(np.arange(MR_CHECK // 2), 2),
+        triplet=e1_seeded_model(torch, "ResNet18").state_dict())
+
+
+def mr_hold(what, ranks, one, limit_ok=True):
+    """The ranks' gradient errors against one process's, at phase 6's rule
+    (each weight: ranks' error <= 3 x one process's + 1e-5); with
+    ``limit_ok`` False the control must land over it. Returns (worst
+    weight, its ratio)."""
+    ratio = {n: ranks[n] / (STEP_GRAD_VS_CPU * one[n] + STEP_GRAD_FLOOR)
+             for n in one}
+    worst = max(ratio, key=ratio.get)
+    log(f"  {what}: worst {worst} ranks {ranks[worst]:.3e} vs float64, "
+        f"one process {one[worst]:.3e}: {ratio[worst]:.3f} of the limit")
+    if limit_ok and ratio[worst] > 1:
+        raise AssertionError(f"{what}: {worst} at {ratio[worst]:.3f} of the "
+                             "limit")
+    if not limit_ok and not ratio[worst] > 1:
+        raise AssertionError(f"{what}: the TF32 control lands at "
+                             f"{ratio[worst]:.3f} of the limit; the check "
+                             "cannot see TF32")
+    return worst, ratio[worst]
+
+
+def mr_training_config(root, world_tag):
+    """run_training's config for phase 16: phase 5's training patches,
+    MR_EPOCHS epochs, half of them validation (one full batch)."""
+    cfg = os.path.join(root, f"mr_train_{world_tag}.yml")
+    with open(os.path.join(root, "train_cfg.yml")) as f:
+        text = f.read()
+    text = text.replace("train_out", f"mr_train_out_{world_tag}")
+    text = text.replace(f"n_epochs: {TRAIN_EPOCHS}", f"n_epochs: {MR_EPOCHS}")
+    text = text.replace("val_split_ratio: 0.15", f"val_split_ratio: {MR_VAL}")
+    with open(cfg, "w") as f:
+        f.write(text)
+    return cfg, os.path.join(root, f"mr_train_out_{world_tag}", "vqvae32")
+
+
+def mr_check_training(torch, res, logs, want_steps, want_val, tag):
+    for r, (rc, out) in enumerate(res):
+        if rc != 0:
+            raise AssertionError(f"run_training --multihost rank {r} exited "
+                                 f"{rc}:\n{log_tail(logs[r])}")
+    outs = [o for _, o in res]
+    for o in outs:
+        log(f"  rank {o['rank']}/{o['world']} on {o['device']} "
+            f"({o['card']}) over {o['backend']}: run_training "
+            f"{o['wall']:.3f} s, vq_indices {o['launches']['vq_indices']} "
+            f"(want {want_steps}), vq_lookup {o['launches']['vq_lookup']} "
+            f"(want {want_val}); step at batch {TRAIN_BATCH} "
+            f"({o['timing']['rows']} rows a rank) "
+            f"{o['timing']['step_ms']:.3f} ms, collectives "
+            f"{o['timing']['collective_ms']:.3f} ms a step (share "
+            f"{o['timing']['collective_share']:.4f}), ring step "
+            f"{o['timing']['ring_bytes']:.0f} bytes sent a rank{tag}")
+        if o["launches"]["vq_indices"] != want_steps or \
+                o["launches"]["vq_lookup"] != want_val:
+            raise AssertionError("a rank did not launch vq_indices once a "
+                                 "training step and vq_lookup once a "
+                                 "validation step")
+    if any(o["hist"] != outs[0]["hist"] for o in outs):
+        raise AssertionError("the ranks' histories differ")
+    hist = outs[0]["hist"]
+    if len(hist) != MR_EPOCHS or not hist[-1]["val"] or not all(
+            np.isfinite(v) for h in hist for s in ("train", "val")
+            for v in h[s].values()):
+        raise AssertionError(f"bad history {hist}")
+    if not hist[0]["train"]["time_matching_loss"] > 0:
+        raise AssertionError("no time-matching loss in the history")
+    return outs
+
+
+def write_mr_plate(root, well_raw, weights):
+    """Two wells for run_pipeline's process and pca stages: phase 4's well
+    (C5, 2,304 patches) and another of as many (D3), phase 4's z16
+    weights, and the config."""
+    from dynamorph_tpu_torch.io.pickles import save_pickle
+
+    raw, supp = os.path.join(root, "raw"), os.path.join(root, "supp")
+    os.makedirs(raw)
+    for name in ("C5_file_paths.pkl", "C5_static_patches.pkl"):
+        os.link(os.path.join(well_raw, name), os.path.join(raw, name))
+    sites = ["C5-Site_0", "C5-Site_1", "D3-Site_0"]
+    save_pickle([f"{supp}/D3-supps/D3-Site_0/{i // 2}_{i}.h5"
+                 for i in range(N_PATCHES)],
+                os.path.join(raw, "D3_file_paths.pkl"))
+    save_pickle(blob_patches(np.random.RandomState(SEED + 17),
+                             N_PATCHES)[:, :, None],
+                os.path.join(raw, "D3_static_patches.pkl"))
+    cfg = os.path.join(root, "cfg.yml")
+    with open(cfg, "w") as f:
+        f.write(f"patch:\n  raw_dirs: ['{raw}']\n  supp_dirs: ['{supp}']\n"
+                f"  fov: {sites}\n"
+                "latent_encoding:\n"
+                f"  weights: ['{weights}']\n  save_output: False\n"
+                "  network: 'VQ_VAE_z16'\n"
+                f"  num_hiddens: {NET['num_hiddens']}\n"
+                f"  num_residual_hiddens: {NET['num_residual_hiddens']}\n"
+                f"  num_embeddings: {NET['num_embeddings']}\n"
+                f"dim_reduction:\n  input_dirs: ['{raw}/weights']\n"
+                f"  output_dirs: ['{raw}/weights']\n"
+                f"  weights_dir: '{root}/pca'\n  fit_model: true\n"
+                f"  file_name_prefixes: {list(MR_PIPE_WELLS)}\n"
+                f"  conditions: {list(MR_PIPE_WELLS)}\n")
+    return cfg, raw
+
+
+def mr_pipeline_start(root, world, cards, well_raw, weights):
+    """Three copies of a two-well plate for run_pipeline's process and pca
+    stages; starts its ranks on one copy, and on another with a failure
+    planted on rank 1. Returns what ``mr_pipeline_finish`` takes."""
+    import shutil
+
+    base = os.path.join(root, "mr_plate")
+    write_mr_plate(base, well_raw, weights)
+    dirs = {}
+    for k in ("one", "ranks", "failed"):
+        # hard links: the runs read the inputs and write new files only
+        dirs[k] = os.path.join(root, f"mr_plate_{k}")
+        shutil.copytree(base, dirs[k], copy_function=os.link)
+        cfg = os.path.join(dirs[k], "cfg.yml")
+        with open(cfg) as f:
+            text = f.read().replace(base, dirs[k])
+        os.remove(cfg)
+        with open(cfg, "w") as f:
+            f.write(text)
+    return dirs, {mode: start_ranks(
+        "pipeline", world, root, cards,
+        (os.path.join(dirs[d], "cfg.yml"), mode), tag=mode)
+        for mode, d in (("ok", "ranks"), ("fail", "failed"))}
+
+
+def mr_pipeline_finish(torch, vq, world, dirs, started, tag):
+    """run_pipeline in this process on the first copy while the ranks run,
+    then the ranks' artifacts against it (latents, the PCA fitted once on
+    rank 0) and every rank of the planted failure exiting non-zero."""
+    from dynamorph_tpu_torch.cli import run_pipeline
+    from dynamorph_tpu_torch.io.pickles import load_pickle
+    from dynamorph_tpu_torch.reduce.pca_model import load_pca_model
+
+    vq.vq_lookup.launches = 0
+    t0 = time.perf_counter()
+    one = run_pipeline.main(["-c", os.path.join(dirs["one"], "cfg.yml"),
+                             "--stages", "process", "pca"])
+    torch.cuda.synchronize()
+    one_s, one_launches = time.perf_counter() - t0, vq.vq_lookup.launches
+    res, logs = wait_ranks(started["ok"])
+    ranks_s = time.perf_counter() - started["ok"][3]
+    for r, (rc, _) in enumerate(res):
+        if rc != 0:
+            raise AssertionError(f"run_pipeline --multihost rank {r} exited "
+                                 f"{rc}:\n{log_tail(logs[r])}")
+    outs = [o for _, o in res]
+    if list(one.values())[0] != ["process", "pca"] or \
+            outs[0]["executed"] != ["process", "pca"] or \
+            any(o["executed"] != ["process"] for o in outs[1:]):
+        raise AssertionError("the PCA was not fitted once, on rank 0: "
+                             f"{[o['executed'] for o in outs]}")
+    owned = [log_tail(p, 400).count("owns wells") for p in logs]
+    want = -(-N_PATCHES // BATCH)          # a well's batches
+    launches = [o["launches"] for o in outs]
+    if sum(launches) != 2 * want or max(launches) != want or \
+            one_launches != 2 * want:
+        raise AssertionError("vq_lookup launches: one process "
+                             f"{one_launches}, ranks {launches}")
+    worst, equal = 0.0, True
+    for well in MR_PIPE_WELLS:
+        for name in ("_latent_space.pkl", "_latent_space_after.pkl"):
+            a = load_pickle(os.path.join(dirs["one"], "raw", "weights",
+                                         well + name))
+            b = load_pickle(os.path.join(dirs["ranks"], "raw", "weights",
+                                         well + name))
+            equal &= bool(np.array_equal(a, b))
+            worst = max(worst, float(np.max(np.abs(a - b))))
+    pa = load_pca_model(os.path.join(dirs["one"], "pca", "pca_model.pkl"))
+    pb = load_pca_model(os.path.join(dirs["ranks"], "pca", "pca_model.pkl"))
+    pca_err = float(np.max(np.abs(pa.components_ - pb.components_)))
+    log(f"  run_pipeline --multihost (process, pca), {world} ranks, wells "
+        f"{list(MR_PIPE_WELLS)}: {ranks_s:.3f} s from their start (one "
+        f"process {one_s:.3f} s, meanwhile); executed "
+        f"{[o['executed'] for o in outs]}; 'owns wells' logged by {owned}; "
+        f"vq_lookup launches a rank {launches} (one process "
+        f"{one_launches}); latents against one process: bit-equal {equal}, "
+        f"max abs {worst:.3e}; PCA components max abs {pca_err:.3e}{tag}")
+    if worst > LATENT_ATOL or pca_err > 1e-4 or \
+            pa.components_.shape != pb.components_.shape:
+        raise AssertionError("the ranks' artifacts differ from one "
+                             "process's")
+    res, logs = wait_ranks(started["fail"])
+    fail_s = time.perf_counter() - started["fail"][3]
+    rcs = [rc for rc, _ in res]
+    planted = "planted on rank 1" in log_tail(logs[1], 60)
+    named = "failed on rank(s) [1]" in log_tail(logs[0], 60)
+    fitted = os.path.exists(os.path.join(dirs["failed"], "pca",
+                                         "pca_model.pkl"))
+    log(f"  planted failure on rank 1: exit codes {rcs} within {fail_s:.3f} "
+        f"s of their start (rank 1 raised its error: {planted}; rank 0 "
+        f"named rank 1: {named}); PCA fitted: {fitted}")
+    if any(rc == 0 for rc in rcs) or not planted or not named or fitted:
+        raise AssertionError("a failure on rank 1 did not fail every rank")
+    return dict(ranks_s=ranks_s, one_s=one_s, fail_s=fail_s,
+                launches=launches, bit_equal=equal)
+
+
+def mr_within_process(torch, vq, dev, well_data, weights, tag):
+    """The fan-out over a process's local devices: fit_pca_distributed on
+    the plate's latents, and encode_patches; with one card, each also on
+    [card, card] (two chunks on the one card) to run the sharded code."""
+    from dynamorph_tpu_torch.core.mesh import local_devices
+    from dynamorph_tpu_torch.models import VQVAEz16
+    from dynamorph_tpu_torch.models.jax_import import (
+        load_reference_checkpoint)
+    from dynamorph_tpu_torch.pipeline.patch_vae import encode_patches
+    from dynamorph_tpu_torch.reduce.pca import (fit_pca_device,
+                                                fit_pca_distributed)
+
+    devs = local_devices()
+    fan = devs if len(devs) > 1 else [dev, dev]
+    if len(devs) < 2:
+        log(f"  local devices: {len(devs)}: fit_pca_distributed and "
+            f"encode_patches take their one-device paths by default; the "
+            f"sharded code runs on [card, card]{tag}")
+    n = PLATE_WELLS * PLATE_PATCHES
+    x = plate_latents(torch, dev, n, SEED + 10)
+    xh = x.cpu().numpy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dist_pca = fit_pca_distributed(xh, devices=fan)
+    torch.cuda.synchronize()
+    dist_s = time.perf_counter() - t0
+    svd = fit_pca_device(xh, device=dev)
+    var_err, ortho = pca_f64_errors(torch, x, dist_pca.mean_,
+                                    dist_pca.components_,
+                                    dist_pca.explained_variance_)
+    k = min(len(svd.components_), len(dist_pca.components_))
+    cos = np.abs(np.sum(svd.components_[:k] * dist_pca.components_[:k], 1))
+    log(f"  fit_pca_distributed, plate {n} x {LATENT_LEN} over "
+        f"{len(fan)} devices: {dist_s:.3f} s, k {len(dist_pca.components_)} "
+        f"(the SVD fit's {len(svd.components_)}); float64: projected variance "
+        f"{var_err:.3e}, C C^T - I {ortho:.3e}; |cos| to the SVD fit's "
+        f"components min {cos.min():.8f}{tag}")
+    if len(dist_pca.components_) != len(svd.components_) or \
+            var_err > 1e-4 or ortho > 1e-4 or cos.min() < 1 - 1e-4:
+        raise AssertionError("fit_pca_distributed disagrees with the SVD "
+                             "fit or with float64")
+    del x
+    model = VQVAEz16(num_inputs=2, **NET)
+    model.load_state_dict(load_reference_checkpoint(
+        os.path.join(weights, "model.pt")), strict=True)
+    data = well_data[:, :, 0]
+    vq.vq_lookup.launches = 0
+    zb, za = encode_patches(model, data, BATCH, normalize="patch",
+                            device=dev, devices=fan)
+    fan_launches = vq.vq_lookup.launches
+    zb1, za1 = encode_patches(model, data, BATCH, normalize="patch",
+                              device=dev)
+    err = max(float(np.max(np.abs(zb - zb1))), float(np.max(np.abs(za - za1))))
+    log(f"  encode_patches over {len(fan)} devices: {len(data)} patches, "
+        f"{fan_launches} vq_lookup launches (a chunk a device a batch); "
+        f"against one device max abs {err:.3e}{tag}")
+    if err > LATENT_ATOL or fan_launches != len(fan) * -(-len(data) // BATCH):
+        raise AssertionError("the fanned-out encode differs from one "
+                             "device's")
+    return dict(pca_s=dist_s, launches=fan_launches, encode_err=err)
+
+
+def mr_kernel_times(torch, vq, dev, world, tag):
+    """Each kernel at its per-rank shape of Slice F's paths: vq_indices on a
+    rank's training rows (batch 768 / world) and vq_lookup on a rank's
+    validation rows: device ms (CUDA graph) beside the bound, the plain
+    version and the library yardstick (``torch.sum`` + ``addmm`` +
+    ``argmin``, + ``index_select`` for the lookup), as phase 7 times them
+    at the main path's shapes."""
+    n, d, k = TRAIN_BATCH // world * 32 * 32, TRAIN_SHAPE[1], TRAIN_SHAPE[2]
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    z = torch.randn(n, d, device=dev, generator=g)
+    cb = torch.randn(k, d, device=dev, generator=g)
+
+    def library_indices():
+        e2 = torch.sum(cb * cb, dim=1)
+        return torch.argmin(torch.addmm(e2, z, cb.T, beta=1.0, alpha=-2.0),
+                            dim=1)
+
+    def library_lookup():
+        idx = library_indices()
+        return torch.index_select(cb, 0, idx), idx
+
+    out = {}
+    for name, fn, plain, library, bnd in (
+            ("vq_indices", lambda: vq._vq_indices_cuda(z, cb),
+             lambda: vq.vq_indices_reference(z, cb), library_indices,
+             indices_bound(n, d, k)),
+            ("vq_lookup", lambda: vq._vq_lookup_cuda(z, cb),
+             lambda: vq.vq_lookup_reference(z, cb), library_lookup,
+             vq_bound(n, d, k))):
+        ms = time_graph(torch, fn, 20)
+        out[name] = dict(n=n, ms=ms, plain_ms=time_graph(torch, plain, 20),
+                         library_ms=time_graph(torch, library, 20),
+                         bound_ms=bnd[0], bound_by=bnd[1],
+                         bound_share=bnd[0] / ms)
+        log(f"  {name} at a rank's shape N={n} D={d} K={k}: {ms:.6f} ms "
+            f"device, bound {bnd[0]:.6f} ms ({bnd[1]}), share "
+            f"{bnd[0] / ms:.4f}; plain {out[name]['plain_ms']:.6f} ms, "
+            f"library {out[name]['library_ms']:.6f} ms{tag}")
+    return out
+
+
+def phase_multirank(torch, vq, root, dev, card, well, weights):
+    phase("16. multi-rank: run_training --multihost (VQ_VAE_z32, batch 768, "
+          "the ring loss), data-parallel z32 and ResNet18 steps against one "
+          "process, run_pipeline --multihost, the fan-out over local "
+          "devices")
+    from dynamorph_tpu_torch.models import VQVAEz32
+    from dynamorph_tpu_torch.pipeline.patch_vae import _load_model_weights
+
+    tag = f" [{card}]"
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()        # the ranks share the card
+    cards = visible_cards()
+    if len(cards) >= 2:
+        world, backend = min(len(cards), MR_MAX_WORLD), "nccl"
+        cards = cards[:world]
+    else:
+        world, backend = 2, "gloo"
+    log(f"cards visible: {len(cards)}; world {world} over {backend}"
+        + (" (two ranks share the card: NCCL refuses two ranks on one GPU; "
+           "gloo's CUDA tensors cross through host memory)"
+           if backend == "gloo" else ", one card a rank"))
+
+    # training through the CLI
+    cfg, out = mr_training_config(root, f"w{world}")
+    n_val = int(np.floor(MR_VAL * N_TRAIN_PATCHES))
+    steps = MR_EPOCHS * ((N_TRAIN_PATCHES - n_val) // TRAIN_BATCH)
+    val = MR_EPOCHS * (n_val // TRAIN_BATCH)
+    res, logs = run_ranks("train", world, root, cards, (cfg,))
+    outs = mr_check_training(torch, res, logs, steps, val, tag)
+    if outs[0]["backend"] != backend:
+        raise AssertionError(f"backend {outs[0]['backend']}, want {backend}")
+    n_files = sorted(os.listdir(out))
+    fresh = VQVAEz32(**TRAIN_NET)
+    _load_model_weights(fresh, os.path.join(out, "model.pt"))
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        n_lines = len(f.read().splitlines())
+    if n_lines != 2 * MR_EPOCHS:
+        raise AssertionError(f"metrics.jsonl has {n_lines} lines: a rank "
+                             "other than 0 wrote")
+    log(f"  history (the same on every rank): " + json.dumps(
+        [{s: round(h[s]["total_loss"], 6) for s in ("train", "val")}
+         for h in outs[0]["hist"]]) + f"; {out}: {n_files}, model.pt "
+        f"loads strict, metrics.jsonl {n_lines} lines")
+    vq_cfg = os.path.join(root, "mr_process.yml")
+    with open(vq_cfg, "w") as f:
+        f.write("latent_encoding:\n"
+                f"  raw_dirs: ['{well['raw']}']\n"
+                f"  supp_dirs: ['{os.path.join(root, 'supp')}']\n"
+                f"  weights: ['{out}']\n  fov: ['C5-Site_0', 'C5-Site_1']\n"
+                "  save_output: False\n  network: 'VQ_VAE_z32'\n"
+                f"  num_hiddens: {TRAIN_NET['num_hiddens']}\n"
+                f"  num_residual_hiddens: "
+                f"{TRAIN_NET['num_residual_hiddens']}\n"
+                f"  num_embeddings: {TRAIN_NET['num_embeddings']}\n")
+    from dynamorph_tpu_torch.cli import run_vae
+
+    vq.vq_lookup.launches = 0
+    run_vae.main(["-m", "process", "-c", vq_cfg])
+    torch.cuda.synchronize()
+    process_launches = vq.vq_lookup.launches
+    log(f"  run_vae -m process with the ranks' model.pt (VQ_VAE_z32): "
+        f"{process_launches} vq_lookup launches")
+    if process_launches != -(-N_PATCHES // BATCH):
+        raise AssertionError("process did not encode with the trained "
+                             "weights")
+    nccl = None
+    if backend == "gloo":
+        # the NCCL code path, with one rank on the one card, alone so its
+        # step is timed alone
+        cfg1, _ = mr_training_config(root, "w1")
+        res1, logs1 = run_ranks("train", 1, root, cards, (cfg1,), tag="w1")
+        s1 = MR_EPOCHS * ((N_TRAIN_PATCHES - n_val) // TRAIN_BATCH)
+        nccl = mr_check_training(torch, res1, logs1, s1, val, tag)[0]
+        if nccl["backend"] != "nccl":
+            raise AssertionError(f"one rank ran over {nccl['backend']}")
+
+    # the step checks and both pipeline runs start together; this process
+    # computes their one-process references meanwhile
+    inp = mr_inputs(torch, world)
+    torch.save(inp, os.path.join(root, "mr_inputs.pt"))
+    t0 = time.perf_counter()
+    started = start_ranks("steps", world, root, cards)
+    dirs, pipe_started = mr_pipeline_start(root, world, cards, well["raw"],
+                                           weights)
+    one = dict(z32=mr_z32_steps(torch, None, inp, dev),
+               triplet=mr_triplet_step(torch, None, inp, dev))
+    res, logs = wait_ranks(started)
+    steps_s = time.perf_counter() - t0
+    for r, (rc, _) in enumerate(res):
+        if rc != 0:
+            raise AssertionError(f"step-check rank {r} exited {rc}:\n"
+                                 f"{log_tail(logs[r])}")
+    ranks = torch.load(os.path.join(root, "mr_ranks.pt"), weights_only=False)
+    if any(o["losses"] != res[0][1]["losses"] or
+           o["triplet_losses"] != res[0][1]["triplet_losses"]
+           for _, o in res):
+        raise AssertionError("the ranks' losses differ")
+    log(f"  step checks ({world} ranks {steps_s:.3f} s beside the pipeline's "
+        f"ranks; z32 {MR_STEPS} steps "
+        f"of {MR_CHECK} patches, ResNet18 one step of {MR_CHECK}; "
+        f"{ranks['z32']['kink_choices']} kink choices a rank a step, "
+        f"one process's computed meanwhile):")
+    loss_rel = max(abs(ranks["z32"]["losses"][0][k] - v) / max(abs(v), 1e-6)
+                   for k, v in one["z32"]["losses"][0].items())
+    loss_rel_t = max(abs(ranks["triplet"]["losses"][k] - v) /
+                     max(abs(v), 1e-6)
+                     for k, v in one["triplet"]["losses"].items())
+    bn = max(float(torch.max(torch.abs(ranks["z32"]["bufs"][n] - b)))
+             for n, b in one["z32"]["bufs"].items())
+    log(f"  first step's losses, ranks vs one process: z32 {loss_rel:.3e}, "
+        f"ResNet18 {loss_rel_t:.3e} relative (limit {STEP_LOSS_RTOL}); "
+        f"running buffers after it max abs {bn:.3e} (limit "
+        f"{STEP_BN_ATOL}){tag}")
+    if loss_rel > STEP_LOSS_RTOL or loss_rel_t > STEP_LOSS_RTOL or \
+            bn > STEP_BN_ATOL:
+        raise AssertionError("the ranks' first step differs from one "
+                             "process's")
+    z_worst = mr_hold(f"z32 gradients over {MR_STEPS} steps",
+                      ranks["z32"]["err"], one["z32"]["err"])
+    z_ctrl = mr_hold("z32 TF32 control (backward in TF32)",
+                     ranks["z32"]["err_control"], one["z32"]["err_first"],
+                     limit_ok=False)
+    t_worst = mr_hold("ResNet18 gradients", ranks["triplet"]["err"],
+                      one["triplet"]["err"])
+    t_ctrl = mr_hold("ResNet18 TF32 control", ranks["triplet"]["err_control"],
+                     one["triplet"]["err"], limit_ok=False)
+
+    pipe = mr_pipeline_finish(torch, vq, world, dirs, pipe_started, tag)
+    within = mr_within_process(torch, vq, dev, well["data"], weights, tag)
+    kt = mr_kernel_times(torch, vq, dev, world, tag)
+    secs = time.perf_counter() - t_phase
+    timing = outs[0]["timing"]
+    log(f"phase 16: {secs:.1f} s; world {world} over {backend}; step at "
+        f"batch {TRAIN_BATCH} {timing['step_ms']:.3f} ms a rank "
+        f"({timing['rows']} rows), collectives share "
+        f"{timing['collective_share']:.4f}, ring step "
+        f"{timing['ring_bytes']:.0f} bytes"
+        + (f"; one rank over NCCL {nccl['timing']['step_ms']:.3f} ms"
+           if nccl else "") + tag)
+    return dict(secs=secs, world=world, backend=backend, timing=timing,
+                nccl=None if nccl is None else nccl["timing"],
+                launches=dict(vq_indices=outs[0]["launches"]["vq_indices"],
+                              vq_lookup=outs[0]["launches"]["vq_lookup"]),
+                steps=steps, process_launches=process_launches,
+                pipeline=pipe, within=within, kernels=kt,
+                step_check=dict(z32=z_worst, z32_control=z_ctrl,
+                                triplet=t_worst, triplet_control=t_ctrl,
+                                loss_rel=max(loss_rel, loss_rel_t), bn=bn))
+
+
 def main() -> int:
     # one card: the first of those visible, so device_count() is what the
     # run uses (set before torch initialises CUDA)
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    _VISIBLE["cuda"] = visible         # phase 16's ranks may take them all
     os.environ["CUDA_VISIBLE_DEVICES"] = \
         "0" if visible is None else visible.split(",")[0]
     import torch
@@ -5408,6 +6339,10 @@ def main() -> int:
         unet = phase_unet_geometry(torch, vq, root, dev, smi)
         keras = phase_keras(torch, vq, root, dev, smi, seg,
                             main_run["data"])
+        multirank = phase_multirank(
+            torch, vq, root, dev, smi,
+            dict(raw=os.path.join(root, "raw"), data=main_run["data"]),
+            main_run["weights"])
 
     z16 = timed["z16 encode"]
     ti = train_timed["indices"]
@@ -5440,6 +6375,13 @@ def main() -> int:
         "launches_after_latents_path": after["launches"]["vq_lookup"],
         "launches_unet_training_path": unet["launches"]["vq_lookup"],
         "launches_keras_path": keras["launches"]["vq_lookup"],
+        "launches_multirank_path": {
+            "run_training_val_steps_per_rank":
+                multirank["launches"]["vq_lookup"],
+            "process_with_the_ranks_model": multirank["process_launches"],
+            "run_pipeline_per_rank": multirank["pipeline"]["launches"],
+            "encode_fanned_out": multirank["within"]["launches"]},
+        "per_rank_shape": multirank["kernels"]["vq_lookup"],
         "z32": {k: timed["z32 encode"][k] for k in
                 ("ms", "ms_per_call", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "bound_share", "rowwise_ms")},
@@ -5474,6 +6416,10 @@ def main() -> int:
         "launches_after_latents_path": after["launches"]["vq_indices"],
         "launches_unet_training_path": unet["launches"]["vq_indices"],
         "launches_keras_path": keras["launches"]["vq_indices"],
+        "launches_multirank_path_per_rank":
+            multirank["launches"]["vq_indices"],
+        "multirank_steps_per_rank": multirank["steps"],
+        "per_rank_shape": multirank["kernels"]["vq_indices"],
         "flips_vs_plain": {k: indices[k]["flips"] for k in indices},
         "flip_rate_vs_f64": {k: indices[k]["f64_rate"] for k in indices},
     }]
@@ -5524,7 +6470,14 @@ def main() -> int:
         f"end to end InceptionResNetV2 "
         f"{keras['features']['InceptionResNetV2']['images_per_s']:.1f}, "
         f"ResNet50 {keras['features']['ResNet50']['images_per_s']:.1f} "
-        f"images/s; phase 15 {keras['secs']:.1f} s; whole script "
+        f"images/s; phase 15 {keras['secs']:.1f} s; multi-rank: world "
+        f"{multirank['world']} over {multirank['backend']}, z32 step at "
+        f"batch {TRAIN_BATCH} {multirank['timing']['step_ms']:.3f} ms a "
+        f"rank, collectives share "
+        f"{multirank['timing']['collective_share']:.4f}, step checks at "
+        f"{multirank['step_check']['z32'][1]:.3f} (z32) and "
+        f"{multirank['step_check']['triplet'][1]:.3f} (ResNet18) of the "
+        f"limit, phase 16 {multirank['secs']:.1f} s; whole script "
         f"{time.perf_counter() - t_start:.1f} s [{smi}]")
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())

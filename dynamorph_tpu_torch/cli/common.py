@@ -1,7 +1,11 @@
 """Shared CLI plumbing: the -m <method> -c <config> pattern (reference
-run_*.py), ``--device``, and site discovery.
+run_*.py), ``--device``, the multi-process flags, and site discovery.
 
-One process drives one card; wells and sites run in turn.
+One process drives one card; wells and sites run in turn. With
+``--multihost`` several processes join one process group
+(``core.mesh.init_multihost``): the stage CLIs split their share-nothing
+sites or wells over the ranks (``shard_work``), and ``run_training``
+trains data-parallel, one card a rank.
 """
 from __future__ import annotations
 
@@ -11,6 +15,7 @@ import os
 from typing import List, Optional, Sequence
 
 from ..config import load_config
+from ..core import mesh
 from ..io.sites import get_im_sites
 
 
@@ -22,13 +27,44 @@ def setup_logging() -> None:
 
 
 def shard_work(items):
-    """This process's slice of a share-nothing work list: all of it, since
-    the port runs as one process."""
-    return list(items)
+    """This process's slice of a share-nothing work list (all of it in one
+    process), logged so the fan-out shows in the stage logs."""
+    items = list(items)
+    mine = mesh.process_slice(items)
+    if mesh.is_multiprocess():
+        logging.getLogger(__name__).info(
+            "process %d/%d owns %d of %d work items", mesh.process_index(),
+            mesh.process_count(), len(mine), len(items))
+    return mine
+
+
+def add_multihost_args(parser: argparse.ArgumentParser) -> None:
+    """The multi-process flags of every CLI
+    (dynamorph_tpu/cli/common.py:25-41)."""
+    parser.add_argument("--multihost", action="store_true",
+                        help="join a process group and share the work "
+                             "over its ranks")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="rank 0's address host:port (omit under "
+                             "torchrun, whose variables are read)")
+    parser.add_argument("--num-processes", type=int, default=None)
+    parser.add_argument("--process-id", type=int, default=None)
+
+
+def init_multihost_from_args(args) -> None:
+    """Join the process group when ``--multihost`` is given
+    (``core.mesh.init_multihost``: the explicit trio goes together or not
+    at all, and without it torchrun's variables are read). ``--device
+    cpu`` takes gloo."""
+    if args.multihost:
+        mesh.init_multihost(
+            args.coordinator, args.num_processes, args.process_id,
+            backend="gloo" if args.device == "cpu" else None)
 
 
 def config_parser() -> argparse.ArgumentParser:
-    """A parser of ``-c`` and ``--device``, the options every CLI takes."""
+    """A parser of ``-c``, ``--device`` and the multi-process flags, the
+    options every CLI takes."""
     parser = argparse.ArgumentParser()
     parser.add_argument("-c", "--config", type=str, required=True,
                         help="path to yaml configuration file")
@@ -36,6 +72,7 @@ def config_parser() -> argparse.ArgumentParser:
                         choices=["cuda", "cpu"],
                         help="device to run on (default: cuda; without a "
                              "card the run fails unless --device cpu)")
+    add_multihost_args(parser)
     return parser
 
 
@@ -50,6 +87,7 @@ def parse_method_config(choices: Sequence[str],
                         choices=list(choices), default=default,
                         help=f"Method: one of {list(choices)}")
     args = parser.parse_args(argv)
+    init_multihost_from_args(args)
     return args.method, load_config(args.config), args.device
 
 

@@ -8,7 +8,10 @@ Usage:
 Directories come from the ``patch`` section (raw_dirs/supp_dirs); stages
 default to the full graph (see pipeline/orchestrator.py). ``--fused`` sets
 ``patch.fused``: the three front-end stages run as one device-resident
-stage (pipeline/fused.py).
+stage (pipeline/fused.py). ``--multihost`` (with ``--coordinator``,
+``--num-processes`` and ``--process-id``, or under torchrun) shares the
+wells over the ranks, one card a rank; the pooled PCA fit runs once, on
+rank 0.
 """
 from __future__ import annotations
 
@@ -17,7 +20,8 @@ from typing import Dict, List, Optional, Sequence
 from ..config import load_config
 from ..core.device import resolve_device
 from ..pipeline.orchestrator import STAGES, run_pipeline
-from .common import config_parser, resolve_sites, setup_logging
+from .common import (config_parser, init_multihost_from_args, resolve_sites,
+                     setup_logging)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, List[str]]:
@@ -33,6 +37,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, List[str]]:
                         help="the fused seg -> instance -> patch front end "
                              "(overrides patch.fused)")
     args = parser.parse_args(argv)
+    init_multihost_from_args(args)
     config = load_config(args.config)
     if args.fused:
         config.patch.fused = True

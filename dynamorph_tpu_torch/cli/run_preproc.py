@@ -15,12 +15,14 @@ from typing import Optional, Sequence
 from ..config import load_config
 from ..core.device import resolve_device
 from ..pipeline.preprocess import discover_sites, run_preprocess
-from .common import config_parser, setup_logging, shard_work
+from .common import (config_parser, init_multihost_from_args, setup_logging,
+                     shard_work)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     setup_logging()
     args = config_parser().parse_args(argv)
+    init_multihost_from_args(args)
     resolve_device(args.device)
     config = load_config(args.config)
     pp = config.preprocess

@@ -5,23 +5,35 @@ VQ_VAE_z32, VAE, IWAE, AAE) or a ResNet/SimCLR encoder (ResNet18, 50,
 
 Usage: python -m dynamorph_tpu_torch.cli.run_training -c <config.yml>
        [--device cuda|cpu]
+       [--multihost [--coordinator host:port --num-processes N
+                     --process-id i]]
 
 Dataflow: per raw_dir, load ``im_static_patches`` (pickle or compact npz),
 its labels and relations; z-score; concatenate the relations across dirs
 with cumulative offsets. The VQ-VAE family is reordered
 trajectory-contiguously and trained with the time-matching loss; a ResNet
 samples positive sets from the labels (``train/triplet_data.py``) and
-trains with the triplet miner. One device either way.
+trains with the triplet miner. One process trains on one card.
+
+``--multihost`` trains data-parallel, one process a card, every rank
+launched with the same config (the trio of flags, or torchrun's variables;
+``core.mesh.init_multihost``): ``training.batch_size`` is the global batch
+and must be a multiple of the world size. The VQ-VAE family then packs
+whole trajectories onto the ranks and runs the trajectory-sharded ring
+loss, as the JAX package chooses ``traj_sharded`` on a multi-device mesh
+(dynamorph_tpu/cli/run_training.py:93-126). Rank 0 writes ``model.pt``.
+The JAX package trains on all of one process's devices at once; the port
+takes one process a card instead.
 """
 from __future__ import annotations
 
-import argparse
 import os
 from typing import Optional, Sequence
 
 import numpy as np
 
 from ..config import load_config
+from ..core import mesh
 from ..core.device import resolve_device
 from ..io.compact import load_array_any
 from ..io.pickles import load_pickle
@@ -32,6 +44,7 @@ from ..train import data as data_utils
 from ..train.checkpoint import MODEL_FILE
 from ..train.trainer import train_triplet, train_vqvae
 from ..train.triplet_data import TripletDataset, augment_img
+from .common import config_parser, init_multihost_from_args
 
 
 def _start_weights(model, path: Optional[str]) -> None:
@@ -112,6 +125,7 @@ def run(config, device: str = "cuda"):
     labels = labels[np.asarray(order)]
     if mask is not None:
         mask = mask[np.asarray(order)]
+    traj_sharded = mesh.is_distributed() and relation_mat is not None
     model = build_model(
         tr.network,
         num_inputs=tr.num_inputs,
@@ -134,18 +148,12 @@ def run(config, device: str = "cuda"):
                        shuffle_data=tr.shuffle_data,
                        val_split_ratio=tr.val_split_ratio,
                        patience=tr.patience, resume=not tr.retrain,
-                       device=dev)
+                       traj_sharded_loss=traj_sharded, device=dev)
 
 
 def main(argv: Optional[Sequence[str]] = None):
-    parser = argparse.ArgumentParser()
-    parser.add_argument("-c", "--config", type=str, required=True,
-                        help="path to yaml configuration file")
-    parser.add_argument("--device", type=str, default="cuda",
-                        choices=["cuda", "cpu"],
-                        help="device to run on (default: cuda; without a "
-                             "card the run fails unless --device cpu)")
-    args = parser.parse_args(argv)
+    args = config_parser().parse_args(argv)
+    init_multihost_from_args(args)
     return run(load_config(args.config), device=args.device)
 
 

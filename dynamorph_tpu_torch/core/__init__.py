@@ -1,1 +1,2 @@
-"""Constants, device resolution and stage timing."""
+"""Constants, device resolution, stage timing, and process groups with the
+fan-out over local devices (``mesh``)."""

@@ -7,6 +7,7 @@ the next well encodes.
 """
 from __future__ import annotations
 
+import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterable, Iterator, Tuple, TypeVar
@@ -64,24 +65,28 @@ class AsyncWriter:
     queue and re-raises the first failure; use as a context manager so
     errors can't be silently dropped.
 
-    ``submit`` is called from one thread only (its check-then-pop on the
-    pending queue is not locked).
+    Any number of threads may submit through one writer: ``submit`` and
+    ``close`` hold a lock over the pending queue, so each write runs once,
+    and one thread's writes run in the order it submitted them.
     """
 
     def __init__(self, depth: int = 2):
         self._pool = ThreadPoolExecutor(max_workers=1)
         self._pending = deque()
         self._depth = max(depth, 1)
+        self._lock = threading.Lock()
 
     def submit(self, fn: Callable, *args, **kwargs) -> None:
-        while len(self._pending) >= self._depth:
-            self._pending.popleft().result()
-        self._pending.append(self._pool.submit(fn, *args, **kwargs))
+        with self._lock:
+            while len(self._pending) >= self._depth:
+                self._pending.popleft().result()
+            self._pending.append(self._pool.submit(fn, *args, **kwargs))
 
     def close(self) -> None:
         try:
-            while self._pending:
-                self._pending.popleft().result()
+            with self._lock:
+                while self._pending:
+                    self._pending.popleft().result()
         finally:
             self._pool.shutdown(wait=True)
 

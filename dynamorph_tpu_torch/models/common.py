@@ -11,6 +11,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..core.mesh import all_gather_cat
+
 
 @contextlib.contextmanager
 def batch_stats(module: nn.Module, train: bool):
@@ -178,8 +180,12 @@ def time_matching_loss(z_flat, time_matching_mat, w_a, w_t, w_n, margin):
     ``time_matching_mat`` may be the uint8 block that the feed sends (4x
     fewer bytes): it moves to ``z_flat``'s device as it is and is cast to
     float32 there (dynamorph_tpu/train/steps.py:84-85).
+
+    Under a data-parallel step ``z_flat`` is this rank's shard: the shards
+    are gathered (with their gradient) and ``time_matching_mat`` is the
+    global batch's (B, B) block, so every rank holds the global loss.
     """
-    sim = pairwise_sq_dist_mean(z_flat)
+    sim = pairwise_sq_dist_mean(all_gather_cat(z_flat))
     rel = torch.as_tensor(time_matching_mat).to(z_flat.device).to(
         torch.float32)
     w = torch.where(rel == 2, w_a, torch.where(rel == 1, w_t, w_n))

@@ -24,6 +24,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..core.device import fp32_strict
+from ..core.mesh import all_gather_cat
 from .common import batch_stats
 from .losses import AllTripletMiner, HardNegativeTripletMiner
 from .unet import BasicBlock, stem_max_pool
@@ -168,11 +169,16 @@ class EncodeProject(nn.Module):
         """Triplet-loss forward (reference resnet.py:119-126): returns (z,
         losses). ``positive_triplet`` (the fraction of valid triplets with
         a positive hinge) is left out for the hard-negative miner, which
-        has none."""
+        has none. Under a data-parallel step the miner sees the global
+        batch: every rank's embeddings (with their gradient) and labels are
+        gathered first, as the JAX step's miner sees the whole sharded
+        batch."""
         with torch.set_grad_enabled(train), fp32_strict(), \
                 batch_stats(self, train):
             z = self._forward(x, "z")
-            loss, f_pos = self.miner(labels, z)
+            labels = torch.as_tensor(labels, device=z.device)
+            loss, f_pos = self.miner(all_gather_cat(labels),
+                                     all_gather_cat(z))
         losses = {"total_loss": loss}
         if f_pos is not None:
             losses["positive_triplet"] = f_pos

@@ -19,6 +19,9 @@ prior) comes from an explicit ``torch.Generator`` on the model's device, or
 is given by the caller (``eps``, ``fixed_eps``, ``z_prior``), never from
 torch's global generator. ``train`` decides how batch norm runs, as in
 ``models/vqvae.py``. The passes run under ``core.device.fp32_strict``.
+Under a data-parallel step (``core.mesh.collective_scope``) the losses are
+the global batch's, as the VQ-VAEs' are, and each rank keeps its rows of
+the global batch's noise draw.
 
 Quirks of the reference kept, as the JAX package keeps them: the
 reconstruction loss is a sum, the reported ``recon_loss`` is divided by
@@ -34,13 +37,21 @@ import torch
 from torch import nn
 
 from ..core.device import fp32_strict
+from ..core.mesh import all_reduce_sum, global_mean, global_rows, rank_rows
 from . import common
 
 
 def _normal(shape, like: torch.Tensor,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
-    return torch.randn(shape, generator=generator, device=like.device,
-                       dtype=like.dtype)
+            generator: Optional[torch.Generator],
+            batch_axis: int = 0) -> torch.Tensor:
+    """Standard normal noise of ``shape``; under a data-parallel step the
+    global batch's draw along ``batch_axis``, of which this rank keeps its
+    rows, so the ranks draw what one process would."""
+    shape = list(shape)
+    shape[batch_axis] = global_rows(shape[batch_axis])
+    return rank_rows(torch.randn(shape, generator=generator,
+                                 device=like.device, dtype=like.dtype),
+                     batch_axis)
 
 
 class _Z16Latent(nn.Module):
@@ -67,11 +78,14 @@ class _Z16Latent(nn.Module):
                                       num_residual_hiddens,
                                       num_residual_layers, extra_out)
         self.dec = common.z16_decoder(num_inputs, num_hiddens)
+        # the time-matching loss, None for common.time_matching_loss (as
+        # the VQ-VAEs' field)
+        self.tm_loss_fn = None
 
     def _tm(self, z: torch.Tensor, time_matching_mat) -> torch.Tensor:
         if time_matching_mat is None:
             return torch.zeros((), dtype=torch.float32, device=z.device)
-        return common.time_matching_loss(
+        return (self.tm_loss_fn or common.time_matching_loss)(
             z.reshape(z.shape[0], -1), time_matching_mat,
             self.w_a, self.w_t, self.w_n, self.margin)
 
@@ -106,18 +120,17 @@ class VAEModel(_Z16Latent):
             if eps is None:
                 eps = _normal(z_std.shape, z_std, generator)
             z_sample = z_mean + z_std * eps
-            kld = -0.5 * torch.sum(1 + z_logstd - z_mean ** 2 -
-                                   torch.exp(z_logstd))
+            kld = all_reduce_sum(-0.5 * torch.sum(
+                1 + z_logstd - z_mean ** 2 - torch.exp(z_logstd)))
             decoded = self.dec(z_sample)
-            recon = common.masked_recon_loss(decoded, x, batch_mask,
-                                             self.channel_var,
-                                             reduction="sum")
+            recon = all_reduce_sum(common.masked_recon_loss(
+                decoded, x, batch_mask, self.channel_var, reduction="sum"))
             total = self.weight_recon * recon + self.weight_kld * kld
             tm = self._tm(z_mean, time_matching_mat)
             if time_matching_mat is not None:
                 total = total + self.weight_matching * tm
         losses = {
-            "recon_loss": recon / (x.shape[0] * 32768),
+            "recon_loss": recon / (global_rows(x.shape[0]) * 32768),
             "KLD": kld,
             "time_matching_loss": tm,
             "total_loss": total,
@@ -171,7 +184,7 @@ class IWAEModel(VAEModel):
     def _eps(self, z_mean, eps, generator):
         if eps is None:
             return _normal((self.k,) + tuple(z_mean.shape), z_mean,
-                           generator)
+                           generator, batch_axis=1)
         return torch.as_tensor(eps, device=z_mean.device)
 
     def apply(self, x: torch.Tensor, train: bool = False,
@@ -192,10 +205,11 @@ class IWAEModel(VAEModel):
             ws = torch.exp(log_ws - torch.max(log_ws, dim=1,
                                                keepdim=True).values)
             norm_ws = (ws / torch.sum(ws, dim=1, keepdim=True)).detach()
-            total = -torch.sum(norm_ws * log_ws) + self.weight_matching * tm
-            recon = torch.sum(norm_ws * recon_losses)
+            total = -all_reduce_sum(torch.sum(norm_ws * log_ws)) + \
+                self.weight_matching * tm
+            recon = all_reduce_sum(torch.sum(norm_ws * recon_losses))
         losses = {
-            "recon_loss": recon / (x.shape[0] * 32768),
+            "recon_loss": recon / (global_rows(x.shape[0]) * 32768),
             "time_matching_loss": tm,
             "total_loss": total,
             "perplexity": torch.zeros((), device=x.device),
@@ -290,8 +304,8 @@ class AAEModel(_Z16Latent):
                 common.batch_stats(self, train):
             z = self._encode(x)
             decoded = self.dec(z)
-            recon = common.masked_recon_loss(decoded, x, batch_mask,
-                                             self.channel_var)
+            recon = global_mean(common.masked_recon_loss(
+                decoded, x, batch_mask, self.channel_var))
             total = self.weight_recon * recon
             tm = self._tm(z, time_matching_mat)
             if time_matching_mat is not None:

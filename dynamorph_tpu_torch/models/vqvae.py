@@ -22,6 +22,13 @@ buffers are the JAX package's ``new_state``.
 
 The passes run under ``core.device.fp32_strict``: full fp32, no TF32, as in
 the JAX reference.
+
+Under a data-parallel step (``core.mesh.collective_scope``) ``apply``'s
+losses are the global batch's: the means are averaged over the ranks'
+equal shards, the perplexity counts codes over every rank's rows, and the
+time-matching loss is ``tm_loss_fn`` (``train.sharded_loss.
+make_traj_sharded_tm_loss`` for trajectory-packed shards) or, when that is
+None, the dense loss over the gathered latents.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import torch
 from torch import nn
 
 from ..core.device import fp32_strict
+from ..core.mesh import all_reduce_sum, global_mean
 from ..ops.vq import (PRECISIONS, gather_codes, perplexity_from_counts,
                       vq_codebook_counts, vq_indices, vq_lookup)
 from . import common
@@ -74,6 +82,9 @@ class VQVAEBase(nn.Module):
         # the training-path codebook search (ops.vq.PRECISIONS: all fp32)
         self.vq_train_precision = vq_train_precision
         self.vq = _Codebook(num_embeddings, num_hiddens)
+        # the time-matching loss, None for common.time_matching_loss: the
+        # drop-in field of dynamorph_tpu/models/vqvae.py:64-66
+        self.tm_loss_fn = None
         self.register_buffer(
             "channel_var", common.channel_var_buffer(channel_var, num_inputs))
 
@@ -107,9 +118,9 @@ class VQVAEBase(nn.Module):
         else:
             q, idx = _lookup_nchw(z_before, codebook)
         z_after, c_loss = common.vq_losses(z_before, q, self.commitment_cost)
-        perplexity = perplexity_from_counts(
-            vq_codebook_counts(idx, self.num_embeddings))
-        return z_after, c_loss, perplexity
+        perplexity = perplexity_from_counts(all_reduce_sum(
+            vq_codebook_counts(idx, self.num_embeddings)))
+        return z_after, global_mean(c_loss), perplexity
 
     def apply(self, x: torch.Tensor, train: bool = False,
               time_matching_mat=None, batch_mask=None):
@@ -126,8 +137,8 @@ class VQVAEBase(nn.Module):
             z_before = self._encode(x)
             z_after, c_loss, perplexity = self._vq(z_before, train)
             decoded = self._decode(z_after)
-            recon = common.masked_recon_loss(decoded, x, batch_mask,
-                                             self.channel_var)
+            recon = global_mean(common.masked_recon_loss(
+                decoded, x, batch_mask, self.channel_var))
             if self._recon_weighted:
                 total = self.weight_recon * recon + \
                     self.weight_commitment * c_loss
@@ -136,7 +147,7 @@ class VQVAEBase(nn.Module):
             tm = torch.zeros((), dtype=torch.float32, device=x.device)
             if time_matching_mat is not None:
                 z_tm = z_after if self._tm_uses_after else z_before
-                tm = common.time_matching_loss(
+                tm = (self.tm_loss_fn or common.time_matching_loss)(
                     z_tm.reshape(z_tm.shape[0], -1), time_matching_mat,
                     self.w_a, self.w_t, self.w_n, self.margin)
                 total = total + self.weight_matching * tm

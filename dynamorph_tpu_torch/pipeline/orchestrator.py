@@ -13,7 +13,16 @@ directories.) With ``patch.fused`` the three front-end stages run as one,
 process run as ``seg_patch_stream`` (pipeline/stream.py), and assemble
 keeps only its relation half.
 
-One process drives one card, so a stage that fails raises at once.
+One process drives one card. In a process group (``run_pipeline
+--multihost``) each rank owns a contiguous slice of the wells
+(``core.mesh.process_slice``) and runs every stage of its wells on its
+card; the pooled PCA fit waits for every rank at a barrier and runs once,
+on rank 0 (dynamorph_tpu/pipeline/orchestrator.py:58-107, :258-292). There
+a stage that fails is recorded, the rank's remaining stages are skipped,
+the barriers are still walked (a raise would leave the other ranks waiting
+in them until the timeout), the fit is skipped when any rank failed, and
+then every rank raises: the failed rank its error, the others an error
+naming the failed ranks. In one process a stage that fails raises at once.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ from typing import List, Optional, Sequence, Union
 
 import torch
 
+from ..core import mesh
 from ..core.device import resolve_device
 from ..core.profiling import stage_timer
 from ..io.compact import resolve_any
@@ -78,16 +88,35 @@ def run_pipeline(raw_dir: str, supp_dir: str, sites: Sequence[str], config,
                          f"available: {STAGES}")
     dev = resolve_device(device)
     executed = []
+    multiproc = mesh.is_multiprocess()
+    if multiproc:
+        all_wells = group_sites_by_well(sites)
+        my_wells = mesh.process_slice(sorted(all_wells))
+        sites = [s for w in my_wells for s in all_wells[w]]
+        log.info("[pipeline] process %d/%d owns wells %s (%d sites)",
+                 mesh.process_index(), mesh.process_count(), my_wells,
+                 len(sites))
+    stage_error: Optional[BaseException] = None
 
     def run(stage: str, fn, skip_if=None):
-        if stage not in stages:
+        nonlocal stage_error
+        if stage not in stages or stage_error is not None:
             return
         if resume and skip_if is not None and skip_if():
             log.info("[pipeline] %s: outputs exist, skipping", stage)
             return
         log.info("[pipeline] running %s", stage)
-        with stage_timer(stage):
-            fn()
+        try:
+            with stage_timer(stage):
+                fn()
+        except Exception as e:
+            if not multiproc:
+                raise
+            stage_error = e
+            log.error("[pipeline] %s failed on process %d: %s; raising "
+                      "after the cross-process barriers", stage,
+                      mesh.process_index(), e)
+            return
         executed.append(stage)
 
     wells = group_sites_by_well(sites)
@@ -202,12 +231,32 @@ def run_pipeline(raw_dir: str, supp_dir: str, sites: Sequence[str], config,
         skip_if=lambda: all(_well_outputs_exist(
             raw_dir, w, ["_trajectories.pkl"]) for w in wells))
     dr = config.dim_reduction
-    if "pca" in stages and dr.input_dirs:
-        # the fit pools the latents of every input directory (reference
-        # run_dim_reduction.py:276-287)
-        with stage_timer("pca"):
-            dim_reduction("pca", dr.input_dirs,
-                          dr.output_dirs or dr.input_dirs, dr.weights_dir,
-                          config, device=dev)
-        executed.append("pca")
+    failed = [stage_error is not None]
+    if multiproc:
+        # every rank's wells are written (a shared filesystem) and every
+        # rank knows whether a peer failed: a fit on an incomplete latent
+        # pool would be worse than none
+        mesh.barrier("pre-pca")
+        failed = mesh.allgather_flags(stage_error is not None)
+    try:
+        if "pca" in stages and dr.input_dirs and not any(failed) and \
+                mesh.is_main_process():
+            # the fit pools the latents of every input directory (reference
+            # run_dim_reduction.py:276-287)
+            with stage_timer("pca"):
+                dim_reduction("pca", dr.input_dirs,
+                              dr.output_dirs or dr.input_dirs,
+                              dr.weights_dir, config, device=dev)
+            executed.append("pca")
+    finally:
+        if multiproc:
+            # every rank leaves together, also when the fit raised on rank 0
+            mesh.barrier("post-pca")
+    if stage_error is not None:
+        raise stage_error
+    if any(failed):
+        raise RuntimeError(
+            f"a pipeline stage failed on rank(s) "
+            f"{[r for r, f in enumerate(failed) if f]}; the pooled PCA fit "
+            f"was skipped")
     return executed

@@ -16,6 +16,7 @@ and of the JAX package: ``<raw>/<model_name>/<well>_latent_space.pkl``
 """
 from __future__ import annotations
 
+import copy
 import logging
 import os
 from typing import Dict, Optional, Sequence, Tuple, Union
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.mesh import local_devices, pad_to_multiple, shard_batch
 from ..core.profiling import stage_timer
 from ..io.compact import (load_array_any, load_stack_any, save_array,
                           storage_path)
@@ -263,11 +265,25 @@ def encode_batch(model, x: torch.Tensor, batch_size: int,
 
 def encode_patches(model, dataset: np.ndarray, batch_size: int = 512,
                    normalize: Optional[str] = None,
-                   device: Device = "cuda"):
+                   device: Device = "cuda",
+                   devices: Optional[Sequence[torch.device]] = None):
     """Batched encode: (N, C, H, W) -> (z_before (N, D*), z_after (N, D*)),
     float32 numpy, ``encode_batch`` by ``encode_batch`` on ``device`` (the
-    model is moved there)."""
+    model is moved there).
+
+    With two or more ``devices`` (default: this process's cards,
+    ``core.mesh.local_devices()``, when ``device`` is the card) each batch
+    fans out over them (dynamorph_tpu/pipeline/patch_vae.py:119-150):
+    ``batch_size`` is rounded up to a multiple of their count, a batch is
+    edge-padded and split into equal chunks (``core.mesh.shard_batch``),
+    a replica of the model encodes each chunk on its device, and the
+    latents come back in order with the padding trimmed."""
     dev = resolve_device(device)
+    if devices is None:
+        devices = local_devices() if dev.type == "cuda" else []
+    if len(devices) > 1:
+        return _encode_fanned_out(model, dataset, batch_size, normalize,
+                                  list(devices))
     model.to(dev)
     zbs, zas = [], []
     for i in range(0, len(dataset), batch_size):
@@ -279,6 +295,24 @@ def encode_patches(model, dataset: np.ndarray, batch_size: int = 512,
     if not zbs:
         raise ValueError("encode_patches: empty dataset")
     return torch.cat(zbs, 0).cpu().numpy(), torch.cat(zas, 0).cpu().numpy()
+
+
+def _encode_fanned_out(model, dataset, batch_size, normalize, devices):
+    replicas = [copy.deepcopy(model).to(d) for d in devices]
+    batch_size = pad_to_multiple(batch_size, len(devices))
+    chunk_rows = batch_size // len(devices)
+    zbs, zas = [], []
+    for i in range(0, len(dataset), batch_size):
+        chunks, n_pad = shard_batch(
+            np.asarray(dataset[i: i + batch_size], dtype=np.float32), devices)
+        outs = [encode_batch(m, x, chunk_rows, normalize)
+                for m, x in zip(replicas, chunks)]
+        n = sum(len(x) for x in chunks) - n_pad
+        zbs.append(torch.cat([z_b.cpu() for z_b, _ in outs])[:n])
+        zas.append(torch.cat([z_a.cpu() for _, z_a in outs])[:n])
+    if not zbs:
+        raise ValueError("encode_patches: empty dataset")
+    return torch.cat(zbs, 0).numpy(), torch.cat(zas, 0).numpy()
 
 
 def resolve_latent_weights(le):

@@ -1,11 +1,23 @@
 """VQ-VAE family training (the reference `train` entry, run_training.py:
 455-551) and triplet training (`train_with_loader`, :554-627): the port of
-``dynamorph_tpu/train/trainer.py`` for one process and one device.
+``dynamorph_tpu/train/trainer.py``, on one device, or data-parallel with
+one device a rank inside a process group (``core.mesh.init_multihost``).
 
 Batches stay trajectory-contiguous when a relation matrix is used
 (shuffle_data=False, reference run_training.py:471-472); the relation block
 for each batch is sliced from the csr matrix on the host, in a prefetch
 thread, while the device runs the previous step.
+
+Data-parallel runs (dynamorph_tpu/train/trainer.py:82-330, :420-560):
+every rank calls the trainer with the same arguments and seed (the host
+data is replicated), and rank 0's weights are broadcast first. Each step
+takes the global batch: every rank uploads only its own equal shard of it
+(the JAX package's ``put_global``) and the step (``train/steps.py``) makes
+the losses, batch norm and miner the global batch's, so the histories are
+the same on every rank and early stopping agrees. The batch must split
+evenly over the ranks, and partial batches are dropped. Rank 0 alone
+writes ``model.pt``, the metrics and the per-epoch checkpoints; the other
+ranks wait at a barrier after each write. ``resume`` reads on every rank.
 """
 from __future__ import annotations
 
@@ -16,9 +28,11 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from ..core import mesh
 from ..core.device import resolve_device, upload
 from ..io.prefetch import Prefetcher
 from . import data as data_utils
+from . import sharded_loss as SL
 from .checkpoint import has_checkpoint, restore_checkpoint, save_checkpoint
 from .metrics import MetricsWriter
 from .steps import make_eval_step, make_train_step, make_triplet_steps
@@ -39,7 +53,7 @@ class EarlyStopping:
         self.patience = patience
         self.delta = delta
         self.path = path
-        self.verbose = verbose
+        self.verbose = verbose and mesh.is_main_process()   # rank 0 prints
         self.counter = 0
         self.best_score = None
         self.early_stop = False
@@ -66,8 +80,42 @@ class EarlyStopping:
         if self.verbose:
             print(f"Validation loss decreased ({self.val_loss_min:.6f} -> "
                   f"{val_loss:.6f}). Saving model ...")
-        save_checkpoint(self.path, model, optimizer, epoch)
+        _save_on_main(self.path, model, optimizer, epoch)
         self.val_loss_min = val_loss
+
+
+def _save_on_main(path: str, model, optimizer=None, epoch=None) -> None:
+    """``save_checkpoint`` by rank 0 alone; in a process group every rank
+    leaves once the file is written."""
+    if mesh.is_main_process():
+        save_checkpoint(path, model, optimizer, epoch)
+    mesh.barrier("checkpoint")
+
+
+def _data_parallel_comm():
+    """The communicator of a process group, or None for one process."""
+    return mesh.ProcessGroupComm() if mesh.is_distributed() else None
+
+
+def _check_batch_splits(rows: int, world: int, what: str) -> None:
+    """The port's message for a batch that does not split over the ranks.
+    The JAX package's says the batch "must divide the mesh", the wrong way
+    round (dynamorph_tpu/train/trainer.py:150-153), and its train_triplet
+    drops every batch and blames the dataset (:485-496, :530-539)."""
+    if rows % world:
+        raise ValueError(
+            f"{what} {rows} does not split evenly over the {world} ranks of "
+            f"the process group: it must be a multiple of the world size "
+            f"{world} (multi-process runs also drop partial batches)")
+
+
+def _mean_losses(totals, count: int):
+    """Device loss sums -> host means (one sync)."""
+    if totals is None:
+        return {}
+    keys = sorted(totals)
+    sums = torch.stack([totals[k] for k in keys]).cpu().tolist()
+    return {k: v / count for k, v in zip(keys, sums)}
 
 
 def train_vqvae(model, dataset: np.ndarray, output_dir: str,
@@ -77,6 +125,7 @@ def train_vqvae(model, dataset: np.ndarray, output_dir: str,
                 val_split_ratio: Optional[float] = 0.15,
                 patience: Optional[int] = 20, seed: int = 0,
                 save_every_epoch: bool = False, resume: bool = False,
+                traj_sharded_loss: bool = False,
                 device: Union[str, torch.device] = "cuda"):
     """Train a VQ-VAE family model (VQ-VAE z16/z32, VAE, IWAE, AAE) in
     place. Returns (model, history).
@@ -95,9 +144,26 @@ def train_vqvae(model, dataset: np.ndarray, output_dir: str,
     seeded with ``seed``, draws the augmentation and the VAE and IWAE
     noise. The AAE trains through ``apply`` with no adversarial term, as
     in the JAX package.
+
+    In a process group (see the module docstring) ``batch_size`` is the
+    global batch. ``traj_sharded_loss=True`` (needs a process group and
+    ``relation_mat``) packs whole trajectories onto the ranks each batch
+    (``sharded_loss.pack_trajectories``) and runs the time-matching loss
+    block-diagonally with the ring for the cross-rank negatives
+    (``sharded_loss.make_traj_sharded_tm_loss``): no rank gathers the
+    latents, and each receives its (b, b) relation block only. It needs at
+    least one full batch. Without it the dense loss runs on the gathered
+    latents and the global (B, B) block.
     """
     if val_split_ratio is not None and not 0 < val_split_ratio < 1:
         raise ValueError(f"val_split_ratio {val_split_ratio} not in (0, 1)")
+    comm = _data_parallel_comm()
+    world, rank = (1, 0) if comm is None else (comm.world, comm.rank)
+    if traj_sharded_loss and (comm is None or relation_mat is None):
+        raise ValueError("traj_sharded_loss requires a process group "
+                         "(core.mesh.init_multihost) and a relation_mat")
+    if comm is not None:
+        _check_batch_splits(batch_size, world, "batch_size")
     dev = resolve_device(device)
     os.makedirs(output_dir, exist_ok=True)
     rng = np.random.RandomState(seed)
@@ -111,30 +177,45 @@ def train_vqvae(model, dataset: np.ndarray, output_dir: str,
         epoch = restore_checkpoint(output_dir, model, optimizer)
         start_epoch = -1 if epoch is None else epoch
         start_epoch += 1
-        print(f"Resuming from {output_dir} at epoch {start_epoch}")
+        if mesh.is_main_process():
+            print(f"Resuming from {output_dir} at epoch {start_epoch}")
+    if comm is not None:
+        mesh.broadcast_state(model, comm)
+    traj_ids = SL.trajectory_ids_from_relations(
+        relation_mat, len(dataset)) if traj_sharded_loss else None
     train_step = make_train_step(model, optimizer, augment=transform,
-                                 generator=generator)
-    eval_step = make_eval_step(model, generator=generator)
+                                 generator=generator, comm=comm)
+    eval_step = make_eval_step(model, generator=generator, comm=comm)
 
     train_ids, val_ids = data_utils.split_data_ids(
         len(dataset), val_split_ratio, shuffle_data, rng)
+    if comm is not None:
+        # every rank's shard of every batch is the same size
+        train_ids = train_ids[:len(train_ids) - len(train_ids) % batch_size]
+        val_ids = val_ids[:len(val_ids) - len(val_ids) % batch_size]
+        if traj_sharded_loss and not train_ids:
+            raise ValueError(
+                f"traj_sharded_loss requires at least one full batch: a "
+                f"dataset of {len(dataset)} leaves no training batch of "
+                f"{batch_size} after the {val_split_ratio} val split")
     n_batches = int(np.ceil(len(train_ids) / batch_size))
     n_val_batches = int(np.ceil(len(val_ids) / batch_size))
 
-    writer = MetricsWriter(output_dir)
+    writer = MetricsWriter(output_dir) if mesh.is_main_process() else None
     early = EarlyStopping(patience=patience or 10 ** 9, path=output_dir,
                           verbose=True)
     history = []
 
-    # Device-resident feed: the patches (and the uint8 mask, transformed
-    # once by slice_mask over the whole set, so the two feeds cannot
-    # diverge) upload once, and each batch is an int32 index gather on the
-    # device; only the uint8 relation blocks travel per step. The gate
-    # counts both, so a dataset that barely fits does not run out once the
-    # mask uploads too.
+    # Device-resident feed (one process): the patches (and the uint8 mask,
+    # transformed once by slice_mask over the whole set, so the two feeds
+    # cannot diverge) upload once, and each batch is an int32 index gather
+    # on the device; only the uint8 relation blocks travel per step. The
+    # gate counts both, so a dataset that barely fits does not run out once
+    # the mask uploads too. In a process group each rank uploads its own
+    # shard of each batch instead.
     resident_bytes = dataset.nbytes + (
         0 if mask is None else len(mask) * int(np.prod(mask.shape[2:])))
-    resident = resident_bytes <= _DEVICE_RESIDENT_BUDGET
+    resident = comm is None and resident_bytes <= _DEVICE_RESIDENT_BUDGET
     if resident:
         dataset_src = torch.from_numpy(np.ascontiguousarray(dataset)).to(dev)
         mask_src = None if mask is None else torch.from_numpy(
@@ -144,7 +225,13 @@ def train_vqvae(model, dataset: np.ndarray, output_dir: str,
         """Relation slice and the batch on the device (a gather when
         resident, a host copy and upload when streamed). Runs in a prefetch
         thread so the next batch's feed overlaps the current step."""
-        rel = data_utils.slice_relation_mat(relation_mat, bids)
+        if traj_sharded_loss:
+            bids = SL.pack_trajectories(bids, traj_ids, world)
+            b = len(bids) // world
+            rel = SL.blockdiag_relations(relation_mat, bids,
+                                         world)[rank * b:(rank + 1) * b]
+        else:
+            rel = data_utils.slice_relation_mat(relation_mat, bids)
         rel = None if rel is None else torch.from_numpy(rel).to(dev)
         if resident:
             bidx = torch.from_numpy(np.asarray(bids, np.int32)).to(dev)
@@ -152,6 +239,9 @@ def train_vqvae(model, dataset: np.ndarray, output_dir: str,
             bmask = None if mask_src is None else \
                 torch.index_select(mask_src, 0, bidx)
         else:
+            if comm is not None:        # this rank's rows only
+                b = len(bids) // world
+                bids = np.asarray(bids)[rank * b:(rank + 1) * b]
             batch = torch.from_numpy(np.ascontiguousarray(dataset[bids])).to(dev)
             bmask = data_utils.slice_mask(mask, bids)
             bmask = None if bmask is None else torch.from_numpy(bmask).to(dev)
@@ -167,39 +257,49 @@ def train_vqvae(model, dataset: np.ndarray, output_dir: str,
             losses = step(batch, rel, bmask)
             totals = losses if totals is None else \
                 {k: totals[k] + v for k, v in losses.items()}
-        if totals is None:
-            return {}
-        keys = sorted(totals)
-        sums = torch.stack([totals[k] for k in keys]).cpu().tolist()
-        return {k: s / n_b for k, s in zip(keys, sums)}
+        return _mean_losses(totals, n_b)
 
-    for epoch in range(start_epoch, n_epochs):
-        train_losses = run_epoch(train_ids, n_batches, True)
-        val_losses = run_epoch(val_ids, n_val_batches, False)
-        writer.write("Loss", train_losses, epoch)
-        writer.write("Val loss", val_losses, epoch)
-        history.append({"epoch": epoch, "train": train_losses,
-                        "val": val_losses})
-        if save_every_epoch:
-            # legacy per-epoch checkpoints (reference vq_vae_supp.py:385)
-            save_checkpoint(os.path.join(output_dir, f"model_epoch{epoch}"),
-                            model)
-        if not val_losses:
-            # no val batch: early-stop on the train loss, which rarely
-            # plateaus, so runs tend to go the full n_epochs
-            if epoch == start_epoch:
-                warnings.warn(
-                    "validation split has no batch; early stopping will "
-                    "monitor the TRAIN loss (patience may never trigger)")
-            val_losses = train_losses
-        early(val_losses["total_loss"], model, optimizer, epoch)
-        if early.early_stop:
-            print("Early stopping")
-            break
-        if shuffle_data and epoch < n_epochs - 1:
-            # reshuffle for the NEXT epoch only, after the early-stop check
-            rng.shuffle(train_ids)
-    writer.close()
+    tm_before = getattr(model, "tm_loss_fn", None)
+    if traj_sharded_loss:
+        model.tm_loss_fn = SL.make_traj_sharded_tm_loss(comm)
+    try:
+        for epoch in range(start_epoch, n_epochs):
+            train_losses = run_epoch(train_ids, n_batches, True)
+            val_losses = run_epoch(val_ids, n_val_batches, False)
+            if writer is not None:
+                writer.write("Loss", train_losses, epoch)
+                writer.write("Val loss", val_losses, epoch)
+            history.append({"epoch": epoch, "train": train_losses,
+                            "val": val_losses})
+            if save_every_epoch:
+                # legacy per-epoch checkpoints (reference
+                # vq_vae_supp.py:385)
+                _save_on_main(os.path.join(output_dir,
+                                           f"model_epoch{epoch}"), model)
+            if not val_losses:
+                # no val batch: early-stop on the train loss, which rarely
+                # plateaus, so runs tend to go the full n_epochs
+                if epoch == start_epoch:
+                    warnings.warn(
+                        "validation split has no batch; early stopping will "
+                        "monitor the TRAIN loss (patience may never "
+                        "trigger)")
+                val_losses = train_losses
+            early(val_losses["total_loss"], model, optimizer, epoch)
+            # the losses are the same on every rank; the flags make sure
+            if any(mesh.allgather_flags(early.early_stop)):
+                if mesh.is_main_process():
+                    print("Early stopping")
+                break
+            if shuffle_data and epoch < n_epochs - 1:
+                # reshuffle for the NEXT epoch only, after the early-stop
+                # check
+                rng.shuffle(train_ids)
+    finally:
+        if traj_sharded_loss:
+            model.tm_loss_fn = tm_before
+    if writer is not None:
+        writer.close()
     return model, history
 
 
@@ -225,20 +325,40 @@ def train_triplet(model, train_set: TripletDataset, val_set: TripletDataset,
     miner), and each improvement writes ``<output_dir>/model.pt``.
     Each batch is built on the host while the device runs the previous
     step; loss sums stay on the device until the epoch ends.
+
+    In a process group every rank builds the same global batches on the
+    host (``np.random``, which the datasets draw from by default, is
+    seeded on every rank from rank 0's draw first) and uploads its shard;
+    the miner sees the gathered batch. A batch's rows (``batch_size *
+    n_sample``) must split evenly over the ranks, and partial batches are
+    dropped.
     """
+    comm = _data_parallel_comm()
+    world, rank = (1, 0) if comm is None else (comm.world, comm.rank)
+    full_rows = batch_size * train_set.n_sample
+    if comm is not None:
+        _check_batch_splits(full_rows, world,
+                            f"a batch of {batch_size} anchors x "
+                            f"{train_set.n_sample} samples =")
     dev = resolve_device(device)
     os.makedirs(output_dir, exist_ok=True)
     rng = np.random.RandomState(seed)
     model.to(dev)
     if has_checkpoint(output_dir) and not retrain:
-        print(f"Found previously saved model state {output_dir}. "
-              "Continue training...")
+        if mesh.is_main_process():
+            print(f"Found previously saved model state {output_dir}. "
+                  "Continue training...")
         restore_checkpoint(output_dir, model)
+    if comm is not None:
+        mesh.broadcast_state(model, comm)
+        host_seed = torch.randint(0, 2 ** 31 - 1, (1,), dtype=torch.int64)
+        comm.broadcast(host_seed)
+        np.random.seed(int(host_seed))
     optimizer = torch.optim.Adam(model.parameters(), lr=lr,
                                  betas=(0.9, 0.999), eps=1e-8)
-    train_step, eval_step = make_triplet_steps(model, optimizer)
+    train_step, eval_step = make_triplet_steps(model, optimizer, comm=comm)
 
-    writer = MetricsWriter(output_dir)
+    writer = MetricsWriter(output_dir) if mesh.is_main_process() else None
     early = EarlyStopping(patience=patience or 10 ** 9, path=output_dir,
                           verbose=True)
     history = []
@@ -250,26 +370,33 @@ def train_triplet(model, train_set: TripletDataset, val_set: TripletDataset,
             totals, count = None, 0
             for labels, data in triplet_batches(dataset, batch_size,
                                                 shuffle=training, rng=rng):
+                if comm is not None:
+                    if len(data) != full_rows:
+                        continue        # a partial batch: dropped
+                    b = full_rows // world
+                    data = data[rank * b:(rank + 1) * b]
+                    labels = labels[rank * b:(rank + 1) * b]
                 losses = step(upload(np.asarray(data, np.float32), dev),
                               upload(np.asarray(labels), dev))
                 totals = losses if totals is None else \
                     {k: totals[k] + v for k, v in losses.items()}
                 count += 1
-            if totals is not None:
-                keys = sorted(totals)
-                sums = torch.stack([totals[k] for k in keys]).cpu().tolist()
-                totals = {k: v / count for k, v in zip(keys, sums)}
-            means[training] = totals or {}
+            means[training] = _mean_losses(totals, count)
         train_losses, val_losses = means[True], means[False]
-        writer.write("Loss", train_losses, epoch)
-        writer.write("Val loss", val_losses, epoch)
+        if writer is not None:
+            writer.write("Loss", train_losses, epoch)
+            writer.write("Val loss", val_losses, epoch)
         history.append({"epoch": epoch, "train": train_losses,
                         "val": val_losses})
         if not train_losses:
             raise ValueError(
                 f"no training batches ran: the dataset ({len(train_set)} "
-                f"anchors) must cover at least one batch of {batch_size} "
-                "anchors")
+                f"anchors) must cover at least one "
+                f"{'full ' if comm is not None else ''}batch of "
+                f"{batch_size} anchors" +
+                (f" (multi-process runs drop partial batches; the "
+                 f"{world} ranks need a full batch)"
+                 if comm is not None else ""))
         monitored = val_losses or train_losses
         metric = earlystop_metric if earlystop_metric in monitored \
             else "total_loss"
@@ -281,8 +408,10 @@ def train_triplet(model, train_set: TripletDataset, val_set: TripletDataset,
                 f"(requested '{earlystop_metric}')")
             warned_fallback = True
         early(monitored[metric], model)
-        if early.early_stop:
-            print("Early stopping")
+        if any(mesh.allgather_flags(early.early_stop)):
+            if mesh.is_main_process():
+                print("Early stopping")
             break
-    writer.close()
+    if writer is not None:
+        writer.close()
     return model, history

@@ -41,6 +41,8 @@ names = [m.name for m in pkgutil.walk_packages(
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+import torch.distributed
+assert not torch.distributed.is_initialized()   # no import joins a group
 assert sys.modules["jax"] is None
 assert not [m for m in sys.modules if m.split(".")[0] in _HOST_ONLY]
 print(" ".join(names))
@@ -63,6 +65,8 @@ _SLICE_MODULES = [
     "dynamorph_tpu_torch.models.inception_resnet_v2",
     "dynamorph_tpu_torch.seg.keras_import",
     "dynamorph_tpu_torch.analysis.imagenet_baseline",
+    "dynamorph_tpu_torch.core.mesh", "dynamorph_tpu_torch.nn.batchnorm",
+    "dynamorph_tpu_torch.train.sharded_loss",
 ]
 
 
