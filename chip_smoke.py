@@ -246,6 +246,19 @@ passed prints the final ``{"ok": true, ...}`` line:
    SVD fit and float64, and ``encode_patches`` fanned out over the local
    devices (on one card: two chunks on it) against one device. Each
    kernel timed at its per-rank shape.
+17. the fan-out over a process's cards (Slice J), over [card, card] on a
+   one-card host (so the chunked, replicated and threaded code runs),
+   each against the one-device path: tiled and direct segmentation of
+   phase 8's site (the largest probability difference within phase 8's
+   card limit; a chunk's batch differs, so cuDNN may choose another
+   algorithm), ResNet50's ``encode_batched`` of 1,024 of phase 4's patches
+   (1e-5 of max |z|), ``seg_patch_fused`` over two sites (phase 10's site
+   cut to 4 frames, under two names) with frames over both entries at
+   site parallelism 1 and 2 (every artifact equal to phase 10's run of the
+   same frames, each site's wall and the call's host share), the
+   streaming encode over both sites (latents against phase 10's rows,
+   vq_lookup launches by device), and every ``analysis.plots`` function
+   writing its file without matplotlib.
    Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and the
    ``{"ok": true, ...}`` line.
 """
@@ -261,6 +274,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -2620,11 +2634,13 @@ class PlantedSegment:
         self.device = unet.device
         self.n_classes = unet.n_classes
         self.calls = 0
+        self._lock = threading.Lock()   # site workers share the model
 
     def probabilities(self, x):
         torch = sys.modules["torch"]
         self.unet.probabilities(x)
-        self.calls += 1
+        with self._lock:
+            self.calls += 1
         on = x[:, 0] * 65535.0 > PLANT_THR
         bg = torch.full(on.shape, 0.97, dtype=torch.float64,
                         device=x.device).masked_fill_(on, 0.05)
@@ -6280,6 +6296,392 @@ def phase_multirank(torch, vq, root, dev, card, well, weights):
                                 loss_rel=max(loss_rel, loss_rel_t), bn=bn))
 
 
+# ---------------------------------------------------------------- phase 17
+#
+# The fan-out over a process's cards (Slice J). The driver's machine has one
+# card, so every fan-out runs over [card, card]: the chunked, replicated and
+# threaded code on the one card, held against the one-device path. The
+# fused and streaming sites are phase 10's site cut to its first FAN_T
+# frames, under two names in one well.
+FAN_T = 4
+FAN_SITES = ["B2-Site_0", "B2-Site_1"]
+FAN_ENCODE = 1024           # phase 4's patches through ResNet50
+
+
+def fan_timed(torch, fn):
+    """(result, seconds) of ``fn()``, the card synchronised at both
+    ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def fan_segmentation(torch, root, dev, fan, tag):
+    """Tiled and direct segmentation of phase 8's site over [card, card]
+    against one device, phase 8's U-Net: the largest probability
+    difference (phase 8's card limit) and whether it is bit-equal."""
+    from dynamorph_tpu_torch.seg.inference import predict_whole_map
+
+    frames = np.load(os.path.join(root, "seg_raw", "D4-Site_0.npy"))
+    model = seg_model(torch, SEED, dev)
+    out = {}
+    for mode in ("tiled", "direct"):
+        res = {}
+        for name, devs in (("one", [dev]), ("fan", fan)):
+            np.random.seed(SEED)
+            res[name] = fan_timed(torch, lambda: predict_whole_map(
+                frames, model, use_channels=[0, 1], n_supp=SEG_SUPP,
+                mode=mode, devices=devs))
+        err = float(np.max(np.abs(res["one"][0] - res["fan"][0])))
+        bit = bool(np.array_equal(res["one"][0], res["fan"][0]))
+        log(f"  {mode} segmentation of phase 8's site ({SEG_T} frames of "
+            f"{SEG_FRAME}^2) over {len(fan)} devices: max |d prob| from one"
+            f" device {err:.3e} (limit {SEG_PROB_ATOL:g}), bit-equal: {bit};"
+            f" {res['one'][1]:.3f} s on one, {res['fan'][1]:.3f} s fanned "
+            f"out{tag}")
+        if not err <= SEG_PROB_ATOL:
+            raise AssertionError(f"{mode} segmentation over {len(fan)} "
+                                 f"devices {err:.3e} from one device")
+        out[mode] = dict(err=err, bit_equal=bit, one_s=res["one"][1],
+                         fan_s=res["fan"][1])
+    return out
+
+
+def fan_resnet(torch, dev, fan, data, tag):
+    """ResNet50's ``encode_batched`` of phase 4's patches at batch 512 over
+    [card, card] against one device (1e-5 of max |z|, phase 12's card
+    limit)."""
+    from dynamorph_tpu_torch.models.resnet_simclr import EncodeProject
+    from dynamorph_tpu_torch.train.data import zscore_patch
+
+    torch.manual_seed(SEED)
+    model = EncodeProject(arch="ResNet50").to(dev)
+    x = zscore_patch(data[:FAN_ENCODE, :, 0]).astype(np.float32)
+    one, one_s = fan_timed(torch, lambda: model.encode_batched(
+        x, batch_size=BATCH, devices=[dev]))
+    two, fan_s = fan_timed(torch, lambda: model.encode_batched(
+        x, batch_size=BATCH, devices=fan))
+    err = float(np.max(np.abs(one - two)))
+    limit = E1_ENCODE_ATOL * float(np.abs(one).max())
+    log(f"  ResNet50 encode_batched of {len(x)} patches at batch {BATCH} "
+        f"over {len(fan)} devices: max |d z| from one device {err:.3e} "
+        f"(limit {limit:.3e}), bit-equal: {bool(np.array_equal(one, two))};"
+        f" {one_s:.3f} s on one, {fan_s:.3f} s fanned out{tag}")
+    if not err <= limit:
+        raise AssertionError("the fanned-out ResNet50 encode differs from "
+                             "one device's")
+    return dict(err=err, one_s=one_s, fan_s=fan_s)
+
+
+def fan_sites(root, raw10):
+    """A raw dir holding phase 10's site cut to FAN_T frames under both of
+    FAN_SITES' names."""
+    raw = os.path.join(root, "fan_raw")
+    os.makedirs(raw)
+    frames = np.load(os.path.join(raw10, f"{FE_SITE}.npy"), mmap_mode="r")
+    np.save(os.path.join(raw, f"{FAN_SITES[0]}.npy"),
+            np.ascontiguousarray(frames[:FAN_T]))
+    for site in FAN_SITES[1:]:
+        os.symlink(os.path.join(raw, f"{FAN_SITES[0]}.npy"),
+                   os.path.join(raw, f"{site}.npy"))
+    return raw
+
+
+def fan_config(root, staged, weights, streaming):
+    """Phase 11's configuration of the fused stage and the stream."""
+    cfg = os.path.join(root, f"fan_{streaming}.yml")
+    with open(cfg, "w") as f:
+        f.write("segmentation_inference:\n"
+                f"  weights: '{staged['seg_weights']}'\n"
+                "  network: 'UNet'\n  channels: [0, 1]\n"
+                f"  num_classes: 3\n  window_size: {SEG_WINDOW}\n"
+                "patch:\n"
+                f"  channels: [0, 1]\n  window_size: {FE_WINDOW}\n"
+                "  fused: true\n"
+                "latent_encoding:\n"
+                f"  weights: ['{weights}']\n  save_output: False\n"
+                f"  channels: [0, 1]\n  input_size: {FE_INPUT}\n"
+                "  network: 'VQ_VAE_z16'\n"
+                f"  num_hiddens: {NET['num_hiddens']}\n"
+                f"  num_residual_hiddens: {NET['num_residual_hiddens']}\n"
+                f"  num_embeddings: {NET['num_embeddings']}\n"
+                f"  streaming: {streaming}\n")
+    from dynamorph_tpu_torch.config.loader import load_config
+
+    return load_config(cfg)
+
+
+def fan_check_site(supp, site, supp10, planted_t, raw, tag=""):
+    """One fanned-out site's artifacts against phase 10's staged run of
+    the same frames (phase 11's one-device run equals that run): the
+    site pickles for t < FAN_T, every frame's stacks (names under the
+    site), the instance maps byte for byte and the probabilities (the
+    planted ones). Returns the number of files compared."""
+    from dynamorph_tpu_torch.io.pickles import load_pickle
+
+    a = os.path.join(supp, "B2-supps", site)
+    b = os.path.join(supp10, "B2-supps", FE_SITE)
+    n = 0
+    for name in ("cell_positions.pkl", "cell_pixel_assignments.pkl"):
+        ref = load_pickle(os.path.join(b, name))
+        same(load_pickle(os.path.join(a, name)),
+             {t: ref[t] for t in range(FAN_T)}, f"{site} {name}")
+        n += 1
+    for t in range(FAN_T):
+        same({os.path.basename(k): v for k, v in load_pickle(
+                os.path.join(a, f"stacks_{t}.pkl")).items()},
+             {os.path.basename(k): v for k, v in load_pickle(
+                os.path.join(b, f"stacks_{t}.pkl")).items()},
+             f"{site} stacks_{t}")
+        with open(os.path.join(a, f"segmentation_{t}.png"), "rb") as fa, \
+                open(os.path.join(b, f"segmentation_{t}.png"), "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"{site} segmentation_{t}.png differs")
+        n += 2
+    probs = np.load(os.path.join(raw, f"{site}_NNProbabilities.npy"))
+    if not np.array_equal(probs, planted_t):
+        raise AssertionError(f"{site}: the probabilities are not the "
+                             "planted ones")
+    return n + 1
+
+
+def fan_fused(torch, root, dev, fan, staged, weights, tag):
+    """``seg_patch_fused`` over both sites with frames over [card, card],
+    at site parallelism 1 and 2 (traced): the artifacts against phase 10's
+    (phase 11's one-device run equals them), each site's wall
+    (``stage_timer``) and the call's host share (torch.profiler)."""
+    import shutil
+
+    from dynamorph_tpu_torch.pipeline import fused
+    from dynamorph_tpu_torch.seg.model import Segment
+    from torch.profiler import ProfilerActivity, profile
+
+    raw10, supp10 = staged["dirs"]
+    planted = np.load(staged["probs_path"])[:FAN_T].astype(np.float32)
+    raw = fan_sites(root, raw10)
+    config = fan_config(root, staged, weights, False)
+    unet = Segment(input_shape=(2, SEG_WINDOW, SEG_WINDOW), n_classes=3,
+                   device=dev)
+    unet.load(staged["seg_weights"])
+    model = PlantedSegment(unet)
+    runs = {}
+    for k in (1, 2):
+        supp = os.path.join(root, f"fan_supp_{k}")
+        timing_log = os.path.join(root, f"fan_timing_{k}.jsonl")
+        os.environ["DYNAMORPH_TIMING_LOG"] = timing_log
+        errors = ErrorRecords()
+        logging.getLogger().addHandler(errors)
+        model.calls = 0
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                failed, wall = fan_timed(torch, lambda: fused.seg_patch_fused(
+                    raw, supp, FAN_SITES, config, model=model, device=dev,
+                    devices=fan, site_parallelism=k))
+        finally:
+            logging.getLogger().removeHandler(errors)
+            del os.environ["DYNAMORPH_TIMING_LOG"]
+        if failed or errors.messages:
+            raise AssertionError(f"site parallelism {k}: failed {failed}, "
+                                 f"errors {errors.messages}")
+        if model.calls != FAN_T * len(FAN_SITES):
+            raise AssertionError(f"the U-Net ran {model.calls} times")
+        busy = merged((e.time_range.start, e.time_range.end)
+                      for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.is_user_annotation)
+        del prof
+        busy_s = sum(b - a for a, b in busy) / 1e6 if busy else None
+        with open(timing_log) as f:
+            site_s = {r["site"]: r["seconds"] for r in map(json.loads, f)
+                      if r.get("stage") == "seg_patch_fused"}
+        n = sum(fan_check_site(supp, s, supp10, planted, raw)
+                for s in FAN_SITES)
+        share = "not measured (no device event)" if busy_s is None else \
+            f"{1 - busy_s / wall:.4f}"
+        log(f"  seg_patch_fused, {len(FAN_SITES)} sites of {FAN_T} frames "
+            f"of {FE_FRAME}^2, frames over {len(fan)} devices, site "
+            f"parallelism {k}: {wall:.3f} s ({wall / len(FAN_SITES):.3f} s "
+            f"a site; each site's own wall " + ", ".join(
+                f"{s} {v:.3f} s" for s, v in site_s.items()) +
+            f"), device busy {busy_s if busy_s is None else round(busy_s, 4)}"
+            f" s, host share {share}; {n} artifacts equal to phase 10's "
+            f"staged run of the same frames{tag}")
+        runs[k] = dict(wall=wall, per_site=wall / len(FAN_SITES),
+                       site_s=site_s, busy_s=busy_s,
+                       host_share=None if busy_s is None
+                       else 1 - busy_s / wall, files=n)
+        shutil.rmtree(supp)
+    return raw, config, runs
+
+
+def fan_stream(torch, vq, root, dev, fan, raw, staged, weights, tag):
+    """``seg_patch_stream`` over both sites, frames over [card, card] and
+    two site groups: the latents against phase 10's rows of the same
+    patches (z_before within phase 4's limit, z_after on the same codes
+    but at float64-verified near-ties), and the vq_lookup launches by
+    device."""
+    import shutil
+
+    from dynamorph_tpu_torch.io.pickles import load_pickle
+    from dynamorph_tpu_torch.pipeline import stream
+    from dynamorph_tpu_torch.seg.model import Segment
+
+    raw10, supp10 = staged["dirs"]
+    config = fan_config(root, staged, weights, True)
+    saved = stream.build_seg_model
+
+    def planted_model(config, device):
+        unet = Segment(input_shape=(2, SEG_WINDOW, SEG_WINDOW), n_classes=3,
+                       device=device)
+        unet.load(staged["seg_weights"])
+        return PlantedSegment(unet)
+
+    stream.build_seg_model = planted_model
+    supp = os.path.join(root, "fan_stream_supp")
+    vq.vq_lookup.launches = 0
+    vq.vq_lookup.launches_by_device.clear()
+    vq.vq_indices.launches = 0
+    try:
+        _, wall = fan_timed(torch, lambda: stream.seg_patch_stream(
+            raw, supp, FAN_SITES, config, patch_type="mat", device=dev,
+            devices=fan, site_parallelism=2))
+    finally:
+        stream.build_seg_model = saved
+    launches = {"vq_lookup": vq.vq_lookup.launches,
+                "vq_indices": vq.vq_indices.launches}
+    by_device = dict(vq.vq_lookup.launches_by_device)
+    model_name = os.path.basename(weights)
+    fs = [os.path.relpath(f, supp) for f in load_pickle(
+        os.path.join(raw, "B2_file_paths.pkl"))]
+    z_b, z_a = (load_pickle(os.path.join(raw, model_name, f"B2_{n}.pkl"))
+                for n in ("latent_space", "latent_space_after"))
+    fs10 = {os.path.relpath(f, supp10): i for i, f in enumerate(load_pickle(
+        os.path.join(raw10, "B2_file_paths.pkl")))}
+    r_b, r_a = (load_pickle(os.path.join(raw10, model_name, f"B2_{n}.pkl"))
+                for n in ("latent_space", "latent_space_after"))
+    rows = [fs10[f.replace(FAN_SITES[1], FE_SITE)] for f in fs]
+    want = sum(1 for f in fs10 if int(os.path.basename(f).split("_")[0])
+               < FAN_T) * len(FAN_SITES)
+    if len(fs) != want:
+        raise AssertionError(f"streamed {len(fs)} patches, want {want}")
+    r_b, r_a = r_b[rows], r_a[rows]
+    err = float(np.max(np.abs(z_b - r_b)))
+    if not err <= LATENT_ATOL:
+        raise AssertionError(f"streamed z_before {err:.3e} from phase 10's")
+    cb = torch.load(os.path.join(weights, "model.pt"))["vq.w.weight"].cpu()
+
+    def code_rows(z):
+        return torch.from_numpy(z).reshape(-1, 16, 256).permute(0, 2, 1) \
+            .reshape(-1, 16)
+
+    idx, idx_ref = codes_of(torch, code_rows(z_a), cb), \
+        codes_of(torch, code_rows(r_a), cb)
+    flips = torch.nonzero(idx != idx_ref).flatten()
+    if len(flips):
+        check_flips_vs_latents(torch, "fan-out stream",
+                               code_rows(r_b)[flips], code_rows(z_b)[flips],
+                               cb[idx_ref[flips]], cb[idx[flips]])
+    want_l = -(-len(fs) // BATCH)
+    if launches != {"vq_lookup": want_l, "vq_indices": 0} or \
+            sum(by_device.values()) != want_l:
+        raise AssertionError(f"stream launches {launches} {by_device}, want "
+                             f"{want_l} vq_lookup")
+    bit = bool(np.array_equal(z_b, r_b) and np.array_equal(z_a, r_a))
+    log(f"  seg_patch_stream, {len(FAN_SITES)} sites, frames over "
+        f"{len(fan)} devices, 2 site groups: {wall:.3f} s; {len(fs)} "
+        f"patches; vq_lookup launches {launches['vq_lookup']} by device "
+        f"{json.dumps(by_device)}, vq_indices {launches['vq_indices']}; "
+        f"latents vs phase 10's rows of the same patches: z_before max abs "
+        f"{err:.3e} (limit {LATENT_ATOL}), {len(flips)} z_after code flips "
+        f"(near-ties), bit-equal: {bit}{tag}")
+    shutil.rmtree(supp)
+    return dict(wall=wall, launches=launches, by_device=by_device,
+                n_patches=len(fs), err=err, flips=len(flips), bit_equal=bit)
+
+
+def fan_plots(root, tag):
+    """Every ``analysis.plots`` function writes its file here, where
+    matplotlib, seaborn, pandas and imageio are not installed."""
+    from dynamorph_tpu_torch.analysis import plots
+
+    out = os.path.join(root, "plots")
+    os.makedirs(out)
+    rng = np.random.RandomState(SEED)
+    frame = rng.randint(0, 65536, (256, 256)).astype(np.uint16)
+    pos = np.argwhere(rng.rand(256, 256) > 0.9)
+    track = 128 + np.cumsum(rng.randint(-6, 7, (10, 2)), 0)
+    emb = rng.randn(2000, 2)
+
+    def p(name):
+        return os.path.join(out, name)
+
+    t0 = time.perf_counter()
+    files = plots.plot_patches(rng.randint(0, 65536, (3, 64, 64)), out)
+    files += [
+        plots.save_patch_movie(rng.randint(0, 65536, (5, 64, 64)),
+                               p("movie.gif")),
+        plots.plot_class_probabilities(rng.rand(3, 128, 128), p("cp.png")),
+        plots.plot_instance_separation(frame, pos,
+                                       rng.randint(-1, 8, len(pos)),
+                                       p("is.png")),
+        plots.draw_cell_boxes(frame, [(30, 40), (200, 250)], p("bx.png")),
+        plots.plot_frame_matching(frame, frame, rng.rand(5, 2) * 255,
+                                  rng.rand(5, 2) * 255, [(0, 1), (2, 3)],
+                                  p("fm.png")),
+        plots.plot_trajectory_on_frame(frame, track, p("tr.png")),
+        plots.plot_embedding_scatter(emb, p("es.png"),
+                                     labels=np.repeat([0, 1], 1000)),
+        plots.plot_explained_variance(np.sort(rng.rand(20))[::-1] / 20,
+                                      p("ev.png")),
+        plots.plot_pc_vs_property(emb[:, 0], rng.rand(2000) + 0.1,
+                                  p("pp.png"), density=True),
+        plots.plot_correlation_matrix(emb, {"a": rng.randn(2000)},
+                                      p("cm.png")),
+        plots.plot_distribution_comparison(emb[:200, 0], emb[:, 0],
+                                           p("dc.png")),
+        plots.plot_joint_kde(emb[:500, 0], emb[:500, 1], p("jk.png")),
+        plots.plot_violin_modes({"a": emb[:, 0], "b": emb[:, 1] + 1},
+                                p("vm.png"))]
+    secs = time.perf_counter() - t0
+    small = [f for f in files if os.path.getsize(f) < 100]
+    missing = [m for m in ("matplotlib", "seaborn", "pandas", "imageio")
+               if m in sys.modules]
+    if small:
+        raise AssertionError(f"figures not written: {small}")
+    log(f"  analysis.plots: {len(files)} files from every function in "
+        f"{secs:.3f} s; matplotlib, seaborn, pandas, imageio imported: "
+        f"{missing or 'none'}{tag}")
+    return dict(files=len(files), secs=secs)
+
+
+def phase_fan_out(torch, vq, root, dev, card, staged, weights, well_data):
+    phase("17. the fan-out over a process's cards: tiled and direct "
+          "segmentation, the ResNet50 batched encode, seg_patch_fused's "
+          "frame and site groups, the streaming encode, and the figures")
+    from dynamorph_tpu_torch.core.mesh import local_devices
+
+    tag = f" [{card}]"
+    t_phase = time.perf_counter()
+    devs = local_devices()
+    fan = devs if len(devs) > 1 else devs * 2
+    log(f"  local devices: {len(devs)}; the fan-outs run over {len(fan)} "
+        f"entries ({', '.join(str(d) for d in fan)}){tag}")
+    seg = fan_segmentation(torch, root, dev, fan, tag)
+    resnet = fan_resnet(torch, dev, fan, well_data, tag)
+    raw, _, fused_runs = fan_fused(torch, root, dev, fan, staged, weights,
+                                   tag)
+    streamed = fan_stream(torch, vq, root, dev, fan, raw, staged, weights,
+                          tag)
+    figures = fan_plots(root, tag)
+    secs = time.perf_counter() - t_phase
+    log(f"phase 17 took {secs:.1f} s")
+    return dict(secs=secs, seg=seg, resnet=resnet, fused=fused_runs,
+                stream=streamed, figures=figures)
+
+
 def main() -> int:
     # one card: the first of those visible, so device_count() is what the
     # run uses (set before torch initialises CUDA)
@@ -6343,6 +6745,8 @@ def main() -> int:
             torch, vq, root, dev, smi,
             dict(raw=os.path.join(root, "raw"), data=main_run["data"]),
             main_run["weights"])
+        fan = phase_fan_out(torch, vq, root, dev, smi, raw_pcs,
+                            main_run["weights"], main_run["data"])
 
     z16 = timed["z16 encode"]
     ti = train_timed["indices"]
@@ -6382,6 +6786,8 @@ def main() -> int:
             "run_pipeline_per_rank": multirank["pipeline"]["launches"],
             "encode_fanned_out": multirank["within"]["launches"]},
         "per_rank_shape": multirank["kernels"]["vq_lookup"],
+        "launches_fan_out_stream_path": fan["stream"]["launches"]["vq_lookup"],
+        "launches_fan_out_by_device": fan["stream"]["by_device"],
         "z32": {k: timed["z32 encode"][k] for k in
                 ("ms", "ms_per_call", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "bound_share", "rowwise_ms")},
@@ -6419,6 +6825,8 @@ def main() -> int:
         "launches_multirank_path_per_rank":
             multirank["launches"]["vq_indices"],
         "multirank_steps_per_rank": multirank["steps"],
+        "launches_fan_out_stream_path":
+            fan["stream"]["launches"]["vq_indices"],
         "per_rank_shape": multirank["kernels"]["vq_indices"],
         "flips_vs_plain": {k: indices[k]["flips"] for k in indices},
         "flip_rate_vs_f64": {k: indices[k]["f64_rate"] for k in indices},
@@ -6477,7 +6885,15 @@ def main() -> int:
         f"{multirank['timing']['collective_share']:.4f}, step checks at "
         f"{multirank['step_check']['z32'][1]:.3f} (z32) and "
         f"{multirank['step_check']['triplet'][1]:.3f} (ResNet18) of the "
-        f"limit, phase 16 {multirank['secs']:.1f} s; whole script "
+        f"limit, phase 16 {multirank['secs']:.1f} s; fan-out over "
+        f"[card, card]: tiled / direct segmentation "
+        f"{fan['seg']['tiled']['err']:.3e} / {fan['seg']['direct']['err']:.3e}"
+        f" from one device, ResNet50 {fan['resnet']['err']:.3e}, "
+        f"seg_patch_fused a site at site parallelism 1 / 2 "
+        f"{fan['fused'][1]['per_site']:.3f} / "
+        f"{fan['fused'][2]['per_site']:.3f} s, the stream's z_before "
+        f"{fan['stream']['err']:.3e}, phase 17 {fan['secs']:.1f} s; whole "
+        f"script "
         f"{time.perf_counter() - t_start:.1f} s [{smi}]")
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())

@@ -65,6 +65,16 @@ def fp32_strict() -> Iterator[None]:
                 _tf32_saved = None
 
 
+def device_scope(device) -> contextlib.AbstractContextManager:
+    """``torch.cuda.device(device)`` for a card, so the work a thread
+    queues there goes to that card's current stream; nothing for the
+    CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 def upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array on ``device`` without waiting for the device: on the
     card through pinned memory and a ``non_blocking`` copy, which is

@@ -34,6 +34,7 @@ the step averages the gradients over the ranks.
 from __future__ import annotations
 
 import contextlib
+import copy
 import datetime
 import logging
 import os
@@ -43,6 +44,8 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from .device import HostCopy, device_scope, upload
 
 log = logging.getLogger(__name__)
 
@@ -190,6 +193,155 @@ def local_devices() -> List[torch.device]:
     if _RANK["device"] is not None:
         return [_RANK["device"]]
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def fan_out_devices(devices: Optional[Sequence], home: torch.device
+                    ) -> List[torch.device]:
+    """The device list of a fanned-out call: ``devices`` as given, or,
+    when None, ``local_devices()`` for an entry on the card and ``[home]``
+    for one on the CPU. A list of one device runs the one-device path."""
+    if devices is None:
+        home = torch.device(home)
+        devices = (local_devices() or [home]) if home.type == "cuda" \
+            else [home]
+    devices = [_indexed(d) for d in devices]
+    if not devices:
+        raise ValueError("the device list is empty")
+    return devices
+
+
+def device_groups(devices: Sequence, k: int) -> List[list]:
+    """``devices`` dealt round-robin into ``k`` groups, group g being
+    ``devices[g::k]`` (dynamorph_tpu/pipeline/fused.py:507-508)."""
+    return [list(devices[g::k]) for g in range(k)]
+
+
+def round_to_devices(n: int, n_dev: int) -> int:
+    """A batch of ``n`` rows for ``n_dev`` devices: at least ``n_dev`` and
+    rounded down to a multiple of it, so every device gets an equal chunk
+    (dynamorph_tpu/seg/inference.py:33-40, :113-123)."""
+    n = max(n, n_dev)
+    return n - n % n_dev
+
+
+def zero_pad_rows(x: np.ndarray, n: int) -> np.ndarray:
+    """``x`` with zero rows appended up to ``n`` rows, as the JAX package
+    pads its batches."""
+    if len(x) >= n:
+        return x
+    return np.concatenate([x, np.zeros((n - len(x),) + x.shape[1:],
+                                       x.dtype)])
+
+
+def map_chunks(fn, model, x: np.ndarray, devices: Sequence[torch.device]
+               ) -> np.ndarray:
+    """``fn(replica, rows)`` over a host batch fanned out over
+    ``devices``: ``x`` (its length a multiple of the device count) split
+    into equal chunks in order, chunk i uploaded to ``devices[i]`` and
+    handed with ``replica(model, devices[i])`` to ``fn``, every chunk's
+    work queued before any result is fetched; the results concatenated in
+    order on the host."""
+    rows = len(x) // len(devices)
+    copies = []
+    for i, dev in enumerate(devices):
+        with device_scope(dev):
+            chunk = upload(x[i * rows:(i + 1) * rows], dev)
+            copies.append(HostCopy(fn(replica(model, dev), chunk)))
+    return np.concatenate([c.wait() for c in copies])
+
+
+def batches_over_devices(fn, model, dataset, batch_size: int,
+                         devices: Sequence[torch.device]) -> np.ndarray:
+    """``fn(replica, rows)`` over a host dataset in batches fanned out over
+    several devices: ``batch_size`` raised to the device count and rounded
+    down to a multiple of it (dynamorph_tpu/models/resnet_simclr.py:
+    213-215), each batch as float32, the last one zero-padded to a
+    multiple of the count, and the results in order with the padding
+    trimmed (``map_chunks``)."""
+    n_dev = len(devices)
+    batch_size = round_to_devices(batch_size, n_dev)
+    outs = []
+    for i in range(0, len(dataset), batch_size):
+        batch = np.asarray(dataset[i: i + batch_size], dtype=np.float32)
+        padded = zero_pad_rows(batch, pad_to_multiple(len(batch), n_dev))
+        outs.append(map_chunks(fn, model, padded, devices)[:len(batch)])
+    return np.concatenate(outs)
+
+
+# The replicas of a model kept on it, one a device, are built under this
+# lock: several site workers may ask for the same one at once.
+_REPLICA_LOCK = threading.Lock()
+
+
+def _modules_of(model) -> List[torch.nn.Module]:
+    if isinstance(model, torch.nn.Module):
+        return [model]
+    return [v for v in getattr(model, "__dict__", {}).values()
+            if isinstance(v, torch.nn.Module)]
+
+
+def _indexed(device) -> torch.device:
+    """``device`` with its card's index ("cuda" is the current card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def model_device(model) -> Optional[torch.device]:
+    """Where a model's weights are: its (or, for a wrapper such as
+    ``seg.model.Segment``, its modules') first parameter's or buffer's
+    device, else its ``device`` attribute; None for a model with
+    neither."""
+    for m in _modules_of(model):
+        for t in list(m.parameters()) + list(m.buffers()):
+            return t.device
+    dev = getattr(model, "device", None)
+    return None if dev is None else _indexed(dev)
+
+
+def _weights_version(model) -> tuple:
+    """Which tensors the model holds and how often each was written in
+    place: a replica made before the model was trained or loaded again
+    does not match."""
+    return tuple((id(t), t._version) for m in _modules_of(model)
+                 for t in list(m.parameters()) + list(m.buffers()))
+
+
+def _copy_to(model, device: torch.device, cache: dict):
+    if isinstance(model, torch.nn.Module):
+        # the memo keeps the replica cache itself out of the copy
+        return copy.deepcopy(model, {id(cache): {}}).to(device)
+    # a wrapper: a shallow copy whose modules are copied to the device
+    out = copy.copy(model)
+    out.__dict__.pop("_replicas", None)
+    for name, v in vars(model).items():
+        if isinstance(v, torch.nn.Module):
+            setattr(out, name, copy.deepcopy(v).to(device))
+    out.device = device
+    return out
+
+
+def replica(model, device):
+    """``model`` on ``device``: the model itself where its weights are
+    there already (or it has none), else a copy built once a device and
+    kept on the model (``_params_on_device``,
+    dynamorph_tpu/pipeline/fused.py:125-140), so a plate's sites and
+    batches share it. A copy made before the model's weights changed
+    (trained, loaded) is made again. A wrapper that is not a
+    ``torch.nn.Module`` is copied with its module attributes and its
+    ``device`` set."""
+    device = _indexed(device)
+    home = model_device(model)
+    if home is None or home == device:
+        return model
+    version = _weights_version(model)
+    with _REPLICA_LOCK:
+        cache = model.__dict__.setdefault("_replicas", {})
+        hit = cache.get(device)
+        if hit is None or hit[0] != version:
+            hit = cache[device] = (version, _copy_to(model, device, cache))
+        return hit[1]
 
 
 def _wire_device(t: torch.Tensor) -> torch.device:

@@ -39,6 +39,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..core.device import fp32_strict
+from ..core.mesh import batches_over_devices, fan_out_devices, replica
 from .common import batch_stats
 
 _BN_EPS = 1e-3
@@ -218,25 +219,37 @@ class InceptionResNetV2(nn.Module):
         with batch_stats(self, train):
             return self(x)
 
+    def _features(self, x: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad(), fp32_strict():
+            return self.apply(x)
+
     def encode_batched(self, dataset: np.ndarray, out: str = "h",
-                       batch_size: int = 128) -> np.ndarray:
+                       batch_size: int = 128, devices=None) -> np.ndarray:
         """(N, 3, H, W) host images -> (N, 1536) pooled features on the
         host, ``batch_size`` at a time on the model's device, in fp32 with
         no TF32 (the drop-in of ``EncodeProject.encode_batched`` for
         ``analysis.imagenet_baseline.extract_features``). The last batch is
-        not padded: each row's features are its own."""
+        not padded: each row's features are its own.
+
+        With several ``devices`` (default: this process's cards when the
+        model is on the card) each batch fans out over them
+        (``core.mesh.batches_over_devices``;
+        dynamorph_tpu/models/inception_resnet_v2.py:256-275)."""
         if out != "h":
             raise ValueError("InceptionResNetV2 only extracts pooled "
                              "features (out='h')")
         if self.pooling != "avg":
             raise ValueError("encode_batched needs pooling='avg'")
-        dev = next(self.parameters()).device
+        devices = fan_out_devices(devices, next(self.parameters()).device)
+        if len(devices) > 1:
+            return batches_over_devices(lambda m, x: m._features(x), self,
+                                        dataset, batch_size, devices)
+        model = replica(self, devices[0])
         outs = []
-        with torch.no_grad(), fp32_strict():
-            for i in range(0, len(dataset), batch_size):
-                x = torch.from_numpy(np.asarray(
-                    dataset[i: i + batch_size], dtype=np.float32)).to(dev)
-                outs.append(self.apply(x).cpu())
+        for i in range(0, len(dataset), batch_size):
+            x = torch.from_numpy(np.asarray(
+                dataset[i: i + batch_size], dtype=np.float32)).to(devices[0])
+            outs.append(model._features(x).cpu())
         return torch.cat(outs).numpy()
 
 

@@ -24,7 +24,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..core.device import fp32_strict
-from ..core.mesh import all_gather_cat
+from ..core.mesh import (all_gather_cat, batches_over_devices,
+                         fan_out_devices, replica)
 from .common import batch_stats
 from .losses import AllTripletMiner, HardNegativeTripletMiner
 from .unet import BasicBlock, stem_max_pool
@@ -185,16 +186,26 @@ class EncodeProject(nn.Module):
         return z, losses
 
     def encode_batched(self, dataset: np.ndarray, out: str = "z",
-                       batch_size: int = 512) -> np.ndarray:
+                       batch_size: int = 512,
+                       devices=None) -> np.ndarray:
         """(N, C, H, W) host patches -> (N, width) float32 on the host, in
         batches of ``batch_size`` on the model's device (the running
-        statistics make each row's output its own)."""
+        statistics make each row's output its own).
+
+        With several ``devices`` (default: this process's cards when the
+        model is on the card) each batch fans out over them, a replica of
+        the model a device (``core.mesh.batches_over_devices``;
+        dynamorph_tpu/models/resnet_simclr.py:203-222)."""
         if not len(dataset):
             raise ValueError("encode_batched: empty dataset")
-        dev = next(self.parameters()).device
-        outs = [self.encode(torch.from_numpy(np.asarray(
-                    dataset[i: i + batch_size], dtype=np.float32)).to(dev),
-                    out)
+        devices = fan_out_devices(devices, next(self.parameters()).device)
+        if len(devices) > 1:
+            return batches_over_devices(lambda m, x: m.encode(x, out), self,
+                                        dataset, batch_size, devices)
+        model = replica(self, devices[0])
+        outs = [model.encode(torch.from_numpy(np.asarray(
+                    dataset[i: i + batch_size], dtype=np.float32)).to(
+                        devices[0]), out)
                 for i in range(0, len(dataset), batch_size)]
         return torch.cat(outs).cpu().numpy()
 

@@ -26,6 +26,7 @@ loop structure), which nothing in the package calls and no counter counts.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -113,6 +114,7 @@ def _launch_lookup(entry: str, z_flat: torch.Tensor, codebook: torch.Tensor):
 def _vq_lookup_cuda(z_flat: torch.Tensor, codebook: torch.Tensor):
     q, idx, launched = _launch_lookup("vq_lookup_f32", z_flat, codebook)
     vq_lookup.launches += launched
+    vq_lookup.launches_by_device[str(z_flat.device)] += launched
     return q, idx
 
 
@@ -148,6 +150,8 @@ def vq_lookup(z: torch.Tensor, codebook: torch.Tensor):
 
 
 vq_lookup.launches = 0
+# the same launches by the device they ran on ("cuda:0", ...)
+vq_lookup.launches_by_device = collections.Counter()
 
 # The JAX package's precision strings for the training-path distances, and
 # what each computes here. On the TPU they pick the MXU passes of the

@@ -33,6 +33,14 @@ waits on the event of a copy that the main thread started.
 The artifacts are those of the three staged stages. Given the same
 probabilities they are equal (``tests/test_torch_fused.py``); the U-Net
 runs at batch 1 on the whole frame, as the staged direct mode does.
+
+Over several devices (this process's cards by default) a site's frames go
+round-robin, frame t on ``devices[t % len]``, each on the model's replica
+there (``core.mesh.replica``), and ``seg_patch_fused`` runs
+``site_parallelism`` sites at once, each worker thread checking a group of
+the devices out of a queue of free groups (``core.mesh.device_groups``).
+Frames are still consumed in order, so every artifact is the same for any
+device list and any site parallelism.
 """
 from __future__ import annotations
 
@@ -40,13 +48,16 @@ import logging
 import os
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from queue import Queue
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..core.constants import CHANNEL_MAX
-from ..core.device import HostCopy, resolve_device, upload
+from ..core.device import HostCopy, device_scope, resolve_device, upload
+from ..core.mesh import (device_groups, fan_out_devices, model_device,
+                         replica)
 from ..core.profiling import stage_timer
 from ..io.compact import save_stack, storage_path
 from ..io.pickles import save_pickle
@@ -84,13 +95,24 @@ def process_site_seg_patch_fused(
         ct_thr: Tuple[int, int] = (500, 12000),
         dbscan_thr: Tuple[int, int] = (10, 250),
         storage: str = "pickle", cluster_workers: Optional[int] = None,
-        frame_hook=None) -> dict:
+        frame_hook=None, devices: Optional[Sequence] = None,
+        lookahead: bool = True) -> dict:
     """Segment, cluster and extract patches for one site with the frame
     and the probabilities on the model's device throughout (see the module
     docstring).
 
     ``model``: a ``seg.model.Segment``, or anything with a ``device`` and
     ``probabilities((1, C, H, W) float32 in [0, 1]) -> (1, K, Z, H, W)``.
+
+    ``devices``: the devices the frames go round (frame t on
+    ``devices[t % len]``; dynamorph_tpu/pipeline/fused.py:142-252);
+    default the model's device alone. The frames in flight are at least as
+    many as the devices, so each has a frame queued.
+
+    ``lookahead``: queue the next frames' uploads and U-Nets ahead of the
+    host work on the current one. Off, the stage runs one frame at a time,
+    clusters on this thread with all the cores, and uses the first device
+    only (more would run nothing in parallel).
 
     ``frame_hook``: optional ``(t_point, patch_out, kept_cells, device)``,
     called on this thread right after frame t's patch program is queued,
@@ -111,7 +133,10 @@ def process_site_seg_patch_fused(
     Returns {"frames", "h2d_bytes", "d2h_bytes"}: the bytes this stage
     copied each way (the probability fetch included).
     """
-    dev = model.device
+    devices = [model_device(model)] if devices is None else \
+        fan_out_devices(devices, None)
+    if not lookahead:
+        devices = devices[:1]
     image_stack = np.load(site_path, mmap_mode="r")  # (T, C, Z, H, W)
     if image_stack.ndim != 5:
         raise ValueError(f"expected 5-D site stack, got {image_stack.shape}")
@@ -128,9 +153,13 @@ def process_site_seg_patch_fused(
 
     if cluster_workers is None:
         cluster_workers = max(1, min(3, os.cpu_count() or 1))
-    window = max(1, int(cluster_workers))
+    # frames in flight beyond the one consumed; none without lookahead
+    window = max(1, int(cluster_workers), len(devices)) if lookahead else 0
     # the cores split between frames (the pool) and the solver's threads
-    dbscan_threads = max(1, (os.cpu_count() or 1) // window)
+    dbscan_threads = max(1, (os.cpu_count() or 1) // max(1, window))
+
+    def frame_device(t_point: int) -> torch.device:
+        return devices[t_point % len(devices)]
 
     def host_cluster(packed: HostCopy):
         # on a pool thread: the packed mask's copy, the unpack to row-major
@@ -143,23 +172,49 @@ def process_site_seg_patch_fused(
             instance_map=False, dbscan_thr=dbscan_thr,
             threads=dbscan_threads)
 
-    cluster_pool = ThreadPoolExecutor(max_workers=window)
+    cluster_pool = ThreadPoolExecutor(max_workers=window) if window else None
     inflight = deque()
 
     def enqueue(t_point: int) -> None:
         raw = image_stack[t_point, used, 0]
         if raw.dtype != np.uint16:
             raw = raw.astype(np.float32)
-        frame, probs, packed = _seg_frame(model, upload(raw, dev), seg_ch,
-                                          fg_thr)
-        # both copies start behind this frame's U-Net, before the next
-        # frame's is queued on the same stream
-        packed = HostCopy(packed)
-        prob_copy = HostCopy(probs)
+        dev = frame_device(t_point)
+        with device_scope(dev):
+            frame, probs, packed = _seg_frame(
+                replica(model, dev), upload(raw, dev), seg_ch, fg_thr)
+            # both copies start behind this frame's U-Net, before the next
+            # frame's is queued on the same stream
+            packed = HostCopy(packed)
+            prob_copy = HostCopy(probs)
         moved["h2d_bytes"] += raw.nbytes
         moved["d2h_bytes"] += packed.nbytes + prob_copy.nbytes
-        inflight.append((t_point, frame, probs, prob_copy,
-                         cluster_pool.submit(host_cluster, packed)))
+        fut = cluster_pool.submit(host_cluster, packed) if cluster_pool \
+            else None
+        inflight.append((t_point, frame, probs, prob_copy, packed, fut))
+
+    def extract(t_point, frame, probs, kept_cells, positions,
+                positions_labels, dev) -> dict:
+        """Queue the frame's label map and patch program on ``dev``, hand
+        the patches to the frame hook and start their copies home."""
+        # exactly the listed pixels go up: int16 when they fit
+        small = max(x_size, y_size) <= 32767 and \
+            int(positions_labels.max(initial=0)) <= 32767
+        cdtype = np.int16 if small else np.int32
+        coords = upload(positions.astype(cdtype), dev)
+        labs = upload(positions_labels.astype(cdtype), dev)
+        moved["h2d_bytes"] += coords.nbytes + labs.nbytes + \
+            len(kept_cells) * 12         # centres and ids
+        labels = scatter_label_map(coords, labs, (x_size, y_size))
+        raw2d = frame[patch_ch]
+        patch_out = dispatch_cell_patches(
+            raw2d, labels, median_background(raw2d, probs[0, 0]),
+            kept_cells, window_size=window_size, device=dev)
+        if frame_hook is not None:
+            frame_hook(t_point, patch_out, kept_cells, dev)
+        copies = {k: HostCopy(v) for k, v in patch_out.items()}
+        moved["d2h_bytes"] += sum(c.nbytes for c in copies.values())
+        return copies
 
     cell_positions = {}
     cell_pixel_assignments = {}
@@ -171,8 +226,10 @@ def process_site_seg_patch_fused(
             while next_t < n_frames and len(inflight) < window + 1:
                 enqueue(next_t)
                 next_t += 1
-            t_point, frame, probs, prob_copy, fut = inflight.popleft()
-            all_cells, positions, positions_labels = fut.result()
+            t_point, frame, probs, prob_copy, packed, fut = \
+                inflight.popleft()
+            all_cells, positions, positions_labels = \
+                fut.result() if fut is not None else host_cluster(packed)
             cell_pixel_assignments[t_point] = (positions, positions_labels)
             # the staged path writes no instance map for a frame that
             # clustering skips (MIN_FG_PIXELS), so neither does this one
@@ -187,24 +244,10 @@ def process_site_seg_patch_fused(
 
             patch_copies = None
             if kept_cells:
-                # exactly the listed pixels go up: int16 when they fit
-                small = max(x_size, y_size) <= 32767 and \
-                    int(positions_labels.max(initial=0)) <= 32767
-                cdtype = np.int16 if small else np.int32
-                coords = upload(positions.astype(cdtype), dev)
-                labs = upload(positions_labels.astype(cdtype), dev)
-                moved["h2d_bytes"] += coords.nbytes + labs.nbytes + \
-                    len(kept_cells) * 12         # centres and ids
-                labels = scatter_label_map(coords, labs, (x_size, y_size))
-                raw2d = frame[patch_ch]
-                patch_out = dispatch_cell_patches(
-                    raw2d, labels, median_background(raw2d, probs[0, 0]),
-                    kept_cells, window_size=window_size, device=dev)
-                if frame_hook is not None:
-                    frame_hook(t_point, patch_out, kept_cells, dev)
-                patch_copies = {k: HostCopy(v) for k, v in patch_out.items()}
-                moved["d2h_bytes"] += sum(c.nbytes
-                                          for c in patch_copies.values())
+                dev = frame_device(t_point)
+                with device_scope(dev):
+                    patch_copies = extract(t_point, frame, probs, kept_cells,
+                                           positions, positions_labels, dev)
 
             # the patch fetch, assembly and write, and the probability
             # fetch, drain on the writer thread
@@ -231,7 +274,8 @@ def process_site_seg_patch_fused(
             del frame, probs, prob_copy
     finally:
         writer.close()
-        cluster_pool.shutdown(wait=True)
+        if cluster_pool is not None:
+            cluster_pool.shutdown(wait=True)
 
     stem = os.path.splitext(site_path)[0]
     np.save(stem + "_NNProbabilities", prob_total)
@@ -272,7 +316,9 @@ def build_seg_model(config, device: Device = "cuda") -> Segment:
 
 def seg_patch_fused(raw_folder: str, supp_folder: str, sites: Sequence[str],
                     config, rerun: bool = True, model=None,
-                    frame_hook_for=None, device: Device = "cuda") -> list:
+                    frame_hook_for=None, device: Device = "cuda",
+                    site_parallelism: Optional[int] = None,
+                    devices: Optional[Sequence] = None) -> list:
     """The fused stage over sites, with one model for all of them and the
     staged path's per-site failure tolerance (reference
     pipeline/segmentation.py:76-86). Returns the ``(site, exception)``
@@ -283,29 +329,41 @@ def seg_patch_fused(raw_folder: str, supp_folder: str, sites: Sequence[str],
     ``frame_hook_for``: optional ``site -> frame_hook`` (see
     ``process_site_seg_patch_fused``).
 
-    One process drives one card, so sites run one after another (the
-    site-parallel fan-out over cards is ROADMAP slice F).
+    ``devices`` (default: this process's cards when ``device`` is the
+    card) are dealt round-robin into ``site_parallelism`` groups (default
+    ``min(len(devices), len(sites))``, clamped to both): that many worker
+    threads run sites at once, each taking whichever group is free from a
+    queue and fanning its site's frames over that group
+    (dynamorph_tpu/pipeline/fused.py:404-522). With one group the sites run
+    one after another on every device. Each worker queues its CUDA work
+    under ``torch.cuda.device`` of its group's first device.
     """
     dev = resolve_device(device)
     if model is None:
         model = build_seg_model(config, device=dev)
+    devices = fan_out_devices(devices, dev)
+    k = site_parallelism if site_parallelism is not None \
+        else min(len(devices), len(sites))
+    k = max(1, min(k, len(devices), max(len(sites), 1)))
     si = config.segmentation_inference
     failed: list = []
-    for site in sites:
+
+    def run_site(site: str, group: list) -> None:
         site_path = os.path.join(raw_folder, f"{site}.npy")
         if not os.path.exists(site_path):
             log.error("Site data not found %s", site_path)
             failed.append((site, FileNotFoundError(site_path)))
-            continue
+            return
         supp = site_supp_folder(supp_folder, site)
         if not rerun and os.path.exists(
                 os.path.join(supp, "cell_positions.pkl")):
             log.info("Found previously saved fused outputs for %s, skip",
                      site)
-            continue
+            return
         hook = frame_hook_for(site) if frame_hook_for is not None else None
         try:
-            with stage_timer("seg_patch_fused", site=site):
+            with stage_timer("seg_patch_fused", site=site), \
+                    device_scope(group[0]):
                 process_site_seg_patch_fused(
                     site_path, model, supp, seg_channels=si.channels,
                     patch_channels=config.patch.channels,
@@ -314,8 +372,29 @@ def seg_patch_fused(raw_folder: str, supp_folder: str, sites: Sequence[str],
                     skip_boundary=config.patch.skip_boundary,
                     storage=config.patch.storage,
                     cluster_workers=config.patch.cluster_workers,
-                    frame_hook=hook)
+                    frame_hook=hook, devices=group)
         except Exception as ex:  # per-site failure tolerance
             log.exception("Error in fused seg->patch for site %s", site)
             failed.append((site, ex))
+
+    if k == 1:
+        for site in sites:
+            run_site(site, devices)
+        return failed
+    # free-group checkout: a worker takes whichever group is idle, so two
+    # long sites do not pile up on one group while another waits
+    free: Queue = Queue()
+    for group in device_groups(devices, k):
+        free.put(group)
+
+    def run_on_free_group(site: str) -> None:
+        group = free.get()
+        try:
+            run_site(site, group)
+        finally:
+            free.put(group)
+
+    with ThreadPoolExecutor(max_workers=k) as pool:
+        for fut in [pool.submit(run_on_free_group, s) for s in sites]:
+            fut.result()
     return failed

@@ -142,10 +142,6 @@ def run_pipeline(raw_dir: str, supp_dir: str, sites: Sequence[str], config,
             "streaming encode — running the fused front-end + staged "
             "assemble/process instead", config.latent_encoding.network)
         streaming = False
-    if fused and (config.patch.fused_site_parallelism or 1) > 1:
-        log.warning("patch.fused_site_parallelism %d ignored: one process "
-                    "drives one card, so sites run one after another",
-                    config.patch.fused_site_parallelism)
     if streaming:
         stages = ["seg_patch_stream"] + [s for s in stages
                                          if s not in front_end and
@@ -160,9 +156,10 @@ def run_pipeline(raw_dir: str, supp_dir: str, sites: Sequence[str], config,
         # rerun=True: the encoder takes the patches from the live frame
         # hook; the whole stage's resume is the skip rule
         run("seg_patch_stream",
-            lambda: seg_patch_stream(raw_dir, supp_dir, sites, config,
-                                     rerun=True, patch_type="mat",
-                                     device=dev),
+            lambda: seg_patch_stream(
+                raw_dir, supp_dir, sites, config, rerun=True,
+                patch_type="mat", device=dev,
+                site_parallelism=config.patch.fused_site_parallelism),
             skip_if=lambda: all(
                 _well_outputs_exist(raw_dir, w, ["_static_patches.pkl",
                                                  "_file_paths.pkl"]) and
@@ -171,8 +168,10 @@ def run_pipeline(raw_dir: str, supp_dir: str, sites: Sequence[str], config,
         stages = ["seg_patch_fused"] + [s for s in stages
                                         if s not in front_end]
         run("seg_patch_fused",
-            lambda: seg_patch_fused(raw_dir, supp_dir, sites, config,
-                                    rerun=not resume, device=dev),
+            lambda: seg_patch_fused(
+                raw_dir, supp_dir, sites, config, rerun=not resume,
+                device=dev,
+                site_parallelism=config.patch.fused_site_parallelism),
             skip_if=lambda: _sites_have(supp_dir, sites,
                                         "cell_positions.pkl"))
     else:

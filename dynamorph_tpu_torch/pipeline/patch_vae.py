@@ -16,7 +16,6 @@ and of the JAX package: ``<raw>/<model_name>/<well>_latent_space.pkl``
 """
 from __future__ import annotations
 
-import copy
 import logging
 import os
 from typing import Dict, Optional, Sequence, Tuple, Union
@@ -25,7 +24,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..core.mesh import local_devices, pad_to_multiple, shard_batch
+from ..core.mesh import local_devices, pad_to_multiple, replica, shard_batch
 from ..core.profiling import stage_timer
 from ..io.compact import (load_array_any, load_stack_any, save_array,
                           storage_path)
@@ -298,7 +297,7 @@ def encode_patches(model, dataset: np.ndarray, batch_size: int = 512,
 
 
 def _encode_fanned_out(model, dataset, batch_size, normalize, devices):
-    replicas = [copy.deepcopy(model).to(d) for d in devices]
+    replicas = [replica(model, d) for d in devices]
     batch_size = pad_to_multiple(batch_size, len(devices))
     chunk_rows = batch_size // len(devices)
     zbs, zas = [], []
@@ -376,7 +375,9 @@ def load_well_inputs(raw_folder: str, well: str):
 
 def process_vae(raw_folder: str, supp_folder: str, sites: Sequence[str],
                 config, batch_size: int = 512, preloaded=None, writer=None,
-                device: Device = "cuda") -> Dict[str, str]:
+                device: Device = "cuda",
+                devices: Optional[Sequence[torch.device]] = None
+                ) -> Dict[str, str]:
     """Encode a well's static patches to latent vectors
     (reference pipeline/patch_VAE.py:343-508), batched on ``device``.
 
@@ -387,6 +388,11 @@ def process_vae(raw_folder: str, supp_folder: str, sites: Sequence[str],
     20 recon JPEGs. A ResNet (``EncodeProject``) z-scores on the host, as
     the JAX package does, and saves the projection ``z`` as
     ``<well>_latent_space.pkl`` only.
+
+    Either branch fans its batches out over ``devices`` (default: this
+    process's cards when ``device`` is the card), as ``encode_patches`` and
+    ``EncodeProject.encode_batched`` do
+    (dynamorph_tpu/pipeline/patch_vae.py:325-339).
 
     ``preloaded``: optional (fs, dataset) from ``load_well_inputs``.
     ``writer``: optional io.prefetch.AsyncWriter — saves submit to it
@@ -429,7 +435,8 @@ def process_vae(raw_folder: str, supp_folder: str, sites: Sequence[str],
         model.to(dev)
         dataset = zscore_patch(dataset).astype(np.float32)
         with stage_timer("process_vae_encode", well=well, n=len(dataset)):
-            z = model.encode_batched(dataset, out="z", batch_size=batch_size)
+            z = model.encode_batched(dataset, out="z", batch_size=batch_size,
+                                     devices=devices)
         put(save_array, z,
             storage_path(os.path.join(output_dir,
                                       f"{well}_latent_space.pkl"), storage),
@@ -441,7 +448,8 @@ def process_vae(raw_folder: str, supp_folder: str, sites: Sequence[str],
     # per-patch z-scoring (reference patch_VAE.py:418) runs on the device
     with stage_timer("process_vae_encode", well=well, n=len(dataset)):
         z_b, z_a = encode_patches(model, dataset, batch_size,
-                                  normalize="patch", device=dev)
+                                  normalize="patch", device=dev,
+                                  devices=devices)
     put(save_array, z_b,
         storage_path(os.path.join(output_dir, f"{well}_latent_space.pkl"),
                      storage),

@@ -25,17 +25,26 @@ float64 resize (``_resize_chw``). The encode is the staged path's own
 ``encode_batch`` at the same 512-row padded batch, so on the CPU the
 streamed latents equal the staged ones bit for bit. The rows are put back
 into sorted-name order at the end.
+
+Frames fanned out over several devices (``seg_patch_fused``'s frame and
+site groups) gather and encode on their own device, with the model's
+replica there (``core.mesh.replica``): each device keeps its own rows
+pending, and the sorted-name order at the end makes the result
+independent of the device count and of the order in which frames arrive
+(dynamorph_tpu/pipeline/stream.py:44-47).
 """
 from __future__ import annotations
 
 import logging
 import os
-from typing import List, Optional, Sequence, Union
+import threading
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from ..core.device import HostCopy, resolve_device
+from ..core.device import HostCopy, device_scope, resolve_device
+from ..core.mesh import replica
 from ..core.profiling import stage_timer
 from ..io.compact import save_array, storage_path
 from ..io.pickles import load_pickle, save_pickle
@@ -73,12 +82,17 @@ def resize_select(mat: torch.Tensor, channels: Sequence[int],
 
 class StreamingWellEncoder:
     """Takes one well's patch tensors from the fused stage's
-    ``frame_hook``, resizes them and encodes them on the card as soon as a
-    full batch has gathered, and returns the well's artifacts in
+    ``frame_hook``, resizes them and encodes them on their device as soon
+    as a full batch has gathered there, and returns the well's artifacts in
     sorted-name order (see the module docstring).
 
+    Site workers of ``seg_patch_fused`` call ``add_frame`` at once: a lock
+    holds the pending rows and the dispatches (each is only queued on the
+    card).
+
     Args:
-        model: the latent model (VQ-VAE family) on its device.
+        model: the latent model (VQ-VAE family); a replica of it encodes
+            on each device that frames come from.
         channels: the PATCH channels fed to the model (reference assemble
             channel select, patch_VAE.py:150-156); raw channels only.
         window_size / input_size: patch and model sizes; window_size must
@@ -101,19 +115,22 @@ class StreamingWellEncoder:
         self.factor = window_size // input_size
         self.batch_size = int(batch_size)
         self.patch_key = patch_key
-        # rows resized but not encoded yet: [(names, (n, C, h, w) tensor)]
-        self._pending: List = []
-        self._n_pending = 0
+        self._lock = threading.Lock()
+        # a device's rows resized but not encoded yet: [(names, (n, C, h,
+        # w) tensor)]
+        self._pending: Dict[torch.device, List] = {}
         # encode results in dispatch order: (names, z_before, z_after)
         self._encoded: List = []
         # the resized rows' host copies, for static_patches
         self._resized: List = []
+        # encode dispatches a device
+        self.dispatches: Dict[torch.device, int] = {}
 
     def add_frame(self, site_supp_folder: str, t_point: int, patch_out,
                   kept_cells, dev) -> None:
-        """One frame's patch tensors: select and resize on the card, copy
-        to the host for static_patches, encode every full batch. The names
-        are ``assemble_site_data``'s keys."""
+        """One frame's patch tensors on ``dev``: select and resize there,
+        copy to the host for static_patches, encode every full batch of
+        ``dev``'s rows. The names are ``assemble_site_data``'s keys."""
         if not kept_cells:
             return
         mat = patch_out[self.patch_key]
@@ -124,39 +141,49 @@ class StreamingWellEncoder:
                 "are appended only in the pickle artifacts)")
         names = [os.path.join(site_supp_folder, "%d_%d.h5" % (t_point, cid))
                  for cid, _ in kept_cells]
-        resized = resize_select(mat, self.channels, self.factor)
-        self._resized.append((names, HostCopy(resized)))
-        self._pending.append((names, resized))
-        self._n_pending += len(names)
-        while self._n_pending >= self.batch_size:
-            self._dispatch(self.batch_size)
+        dev = torch.device(dev)
+        with self._lock, device_scope(dev):
+            resized = resize_select(mat, self.channels, self.factor)
+            self._resized.append((names, HostCopy(resized)))
+            self._pending.setdefault(dev, []).append((names, resized))
+            while self._pending_rows(dev) >= self.batch_size:
+                self._dispatch(dev, self.batch_size)
 
-    def _dispatch(self, rows: int) -> None:
-        """Encode the first ``rows`` pending rows in one dispatch; the
-        results stay on the device until ``finish``."""
-        names = [n for nm, _ in self._pending for n in nm]
-        x = torch.cat([r for _, r in self._pending], 0)
-        z_b, z_a = encode_batch(self.model, x[:rows], self.batch_size,
-                                normalize="patch")
+    def _pending_rows(self, dev: torch.device) -> int:
+        return sum(len(nm) for nm, _ in self._pending[dev])
+
+    def _dispatch(self, dev: torch.device, rows: int) -> None:
+        """Encode the first ``rows`` of ``dev``'s pending rows in one
+        dispatch on ``dev``; the results stay there until ``finish``."""
+        pend = self._pending[dev]
+        names = [n for nm, _ in pend for n in nm]
+        x = torch.cat([r for _, r in pend], 0)
+        z_b, z_a = encode_batch(replica(self.model, dev), x[:rows],
+                                self.batch_size, normalize="patch")
         self._encoded.append((names[:rows], z_b, z_a))
-        self._pending = [(names[rows:], x[rows:])] if len(x) > rows else []
-        self._n_pending = len(x) - rows
+        self._pending[dev] = [(names[rows:], x[rows:])] if len(x) > rows \
+            else []
+        self.dispatches[dev] = self.dispatches.get(dev, 0) + 1
 
     def finish(self):
         """Encode what is left and return the well's artifacts in sorted
         patch-name order: (file_paths, z_before (N, D*), z_after (N, D*),
         static_patches float64 (N, C, 1, h, w) with the reference's stale z
         axis)."""
-        if self._n_pending:
-            self._dispatch(self._n_pending)
+        with self._lock:
+            for dev in list(self._pending):
+                n = self._pending_rows(dev)
+                if n:
+                    with device_scope(dev):
+                        self._dispatch(dev, n)
         names = [n for nm, _, _ in self._encoded for n in nm]
         if not names:
             raise ValueError(
                 "no patches streamed for this well — upstream segmentation/"
                 "instance clustering produced no cells")
         order = np.argsort(np.asarray(names))
-        z_b = torch.cat([z for _, z, _ in self._encoded]).cpu().numpy()
-        z_a = torch.cat([z for _, _, z in self._encoded]).cpu().numpy()
+        z_b = torch.cat([z.cpu() for _, z, _ in self._encoded]).numpy()
+        z_a = torch.cat([z.cpu() for _, _, z in self._encoded]).numpy()
         rnames = [n for nm, _ in self._resized for n in nm]
         flat = np.concatenate([c.wait() for _, c in self._resized], 0)
         dataset = flat.astype(np.float64)[:, :, None][
@@ -168,7 +195,9 @@ def seg_patch_stream(raw_folder: str, supp_folder: str,
                      sites: Sequence[str], config, rerun: bool = True,
                      batch_size: int = 512,
                      patch_type: Optional[str] = None,
-                     device: Device = "cuda") -> None:
+                     device: Device = "cuda",
+                     site_parallelism: Optional[int] = None,
+                     devices: Optional[Sequence] = None) -> None:
     """The fused stage with the streaming encoder attached: one pass over
     the raw stacks writes the fused stage's artifacts and, per well,
     ``<well>_file_paths.pkl``, ``<well>_static_patches.pkl`` and both
@@ -182,6 +211,10 @@ def seg_patch_stream(raw_folder: str, supp_folder: str,
     the live frame hook, so a skipped site would stream nothing: ``rerun``
     is forced to True. A well in which a site failed raises, and none of
     its latents are written.
+
+    ``site_parallelism`` and ``devices``: ``seg_patch_fused``'s site groups
+    and frame fan-out (dynamorph_tpu/pipeline/stream.py:313-410); each
+    frame's patches are encoded on the device the frame ran on.
     """
     le = config.latent_encoding
     if not is_vae_family(le.network):
@@ -222,7 +255,8 @@ def seg_patch_stream(raw_folder: str, supp_folder: str,
             with stage_timer("seg_patch_stream", well=well):
                 failures = seg_patch_fused(
                     raw_folder, supp_folder, wells[well], config, rerun=True,
-                    model=seg_model, frame_hook_for=hook_for, device=dev)
+                    model=seg_model, frame_hook_for=hook_for, device=dev,
+                    site_parallelism=site_parallelism, devices=devices)
                 if failures:
                     # latents of a partial well would look complete to the
                     # orchestrator's skip rule and never be redone

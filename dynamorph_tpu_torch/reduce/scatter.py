@@ -14,14 +14,9 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
+from ..analysis.raster import map_colours
 from ..io.png import write_png
 
-# matplotlib's "Paired" colours (RGB)
-PAIRED = np.array([
-    [166, 206, 227], [31, 120, 180], [178, 223, 138], [51, 160, 44],
-    [251, 154, 153], [227, 26, 28], [253, 191, 111], [255, 127, 0],
-    [202, 178, 214], [106, 61, 154], [255, 255, 153], [177, 89, 40]],
-    dtype=np.float64)
 ALPHA = 0.1
 PANEL = (1440, 1920)        # rows, columns: a 6.4 x 4.8 in figure at 300 dpi
 MARGIN = 60                 # px around each panel's frame
@@ -40,39 +35,38 @@ def zoom_limits(x, y, zoom_cutoff: float = 1) -> Tuple[list, list]:
 def label_colours(labels) -> np.ndarray:
     """(N, 3) RGB: each label's "Paired" colour under matplotlib's linear
     norm from the smallest label to the largest."""
-    lab = np.asarray(labels, np.float64)
-    lo, hi = lab.min(), lab.max()
-    frac = (lab - lo) / (hi - lo) if hi > lo else np.zeros_like(lab)
-    idx = np.clip(np.floor(frac * len(PAIRED)), 0, len(PAIRED) - 1)
-    return PAIRED[idx.astype(int)]
+    return map_colours(labels, "Paired").astype(np.float64)
 
 
-def _ring_offsets() -> np.ndarray:
-    r = int(np.ceil(RING[1]))
+def _disc_offsets(radii) -> np.ndarray:
+    r = int(np.ceil(radii[1]))
     dy, dx = np.mgrid[-r:r + 1, -r:r + 1]
     d = np.hypot(dy, dx)
-    keep = (d >= RING[0]) & (d <= RING[1])
+    keep = (d >= radii[0]) & (d <= radii[1])
     return np.stack([dy[keep], dx[keep]], 1)
 
 
-def _panel(x, y, labels) -> np.ndarray:
-    """One panel, (rows, cols, 3) float32 RGB in [0, 255]."""
-    h, w = PANEL
+def scatter_panel(x, y, colours, xlim, ylim, filled: bool = False,
+                  alpha: float = ALPHA, radius: float = RING[1],
+                  size=PANEL) -> np.ndarray:
+    """One panel, (rows, cols, 3) float32 RGB in [0, 255]: each point a
+    hollow ring (or, ``filled``, a disc) of its colour, blended at
+    ``alpha`` over white in data order, inside a black frame at
+    ``xlim`` / ``ylim``."""
+    h, w = size
     img = np.full((h * w, 3), 255.0, np.float32)
-    xlim, ylim = zoom_limits(x, y)
     inner_h, inner_w = h - 2 * MARGIN, w - 2 * MARGIN
     span_x = (xlim[1] - xlim[0]) or 1.0
     span_y = (ylim[1] - ylim[0]) or 1.0
     col = MARGIN + np.rint((np.asarray(x) - xlim[0]) / span_x * (inner_w - 1))
     row = MARGIN + np.rint((ylim[1] - np.asarray(y)) / span_y * (inner_h - 1))
-    colours = label_colours(labels)
-    offsets = _ring_offsets()
-    # points are drawn in data order; labels come in runs (pooled latents
-    # are concatenated source by source), and within a run every point has
-    # the same colour, so blending a run's hit counts at once is exact
-    lab = np.asarray(labels)
-    starts = np.flatnonzero(np.r_[True, lab[1:] != lab[:-1]])
-    ends = np.r_[starts[1:], len(lab)]
+    colours = np.asarray(colours, np.float64)
+    offsets = _disc_offsets((0.0 if filled else radius - 2.0, radius))
+    # points of one colour come in runs (pooled latents are concatenated
+    # source by source), and blending a run's hit counts at once is exact
+    same = np.all(colours[1:] == colours[:-1], axis=1)
+    starts = np.flatnonzero(np.r_[True, ~same])
+    ends = np.r_[starts[1:], len(colours)]
     for s, e in zip(starts, ends):
         rr = (row[s:e, None] + offsets[None, :, 0]).ravel()
         cc = (col[s:e, None] + offsets[None, :, 1]).ravel()
@@ -80,16 +74,28 @@ def _panel(x, y, labels) -> np.ndarray:
             (cc >= MARGIN) & (cc < w - MARGIN)
         pix, hits = np.unique((rr[inside] * w + cc[inside]).astype(np.int64),
                               return_counts=True)
-        keep = ((1.0 - ALPHA) ** hits)[:, None]
+        keep = ((1.0 - alpha) ** hits)[:, None]
         img[pix] = img[pix] * keep + colours[s] * (1.0 - keep)
     img = img.reshape(h, w, 3)
+    draw_frame(img)
+    return img
+
+
+def draw_frame(img: np.ndarray) -> None:
+    """The panel's black frame, 2 px, just outside its MARGIN."""
+    h, w = img.shape[:2]
     top, bottom, left, right = MARGIN - 2, h - MARGIN + 1, MARGIN - 2, \
         w - MARGIN + 1
     img[top:top + 2, left:right + 1] = 0
     img[bottom - 1:bottom + 1, left:right + 1] = 0
     img[top:bottom + 1, left:left + 2] = 0
     img[top:bottom + 1, right - 1:right + 1] = 0
-    return img
+
+
+def _panel(x, y, labels) -> np.ndarray:
+    """One panel of the reduction scatter, (rows, cols, 3) float32 RGB."""
+    xlim, ylim = zoom_limits(x, y)
+    return scatter_panel(x, y, label_colours(labels), xlim, ylim)
 
 
 def write_scatter_png(path: str, panels: Sequence[Tuple[np.ndarray,
@@ -104,5 +110,10 @@ def write_scatter_png(path: str, panels: Sequence[Tuple[np.ndarray,
     for i, (x, y) in enumerate(panels):
         r, c = divmod(i, n_cols)
         img[r * h:(r + 1) * h, c * w:(c + 1) * w] = _panel(x, y, labels)
-    # io/png.py takes BGR, as cv2.imwrite does
-    write_png(path, np.rint(img[..., ::-1]).astype(np.uint8))
+    write_rgb_png(path, img)
+
+
+def write_rgb_png(path: str, rgb: np.ndarray) -> None:
+    """An RGB float image in [0, 255], rounded to 8 bits (io/png.py takes
+    BGR, as cv2.imwrite does)."""
+    write_png(path, np.rint(rgb[..., ::-1]).astype(np.uint8))

@@ -8,6 +8,14 @@ tile forwards in 6 batches). The JAX package pads each batch to a bucket so
 XLA compiles few programs; PyTorch compiles nothing per shape, so the port
 sends the tiles unpadded. The merge stays on the host in float64, in the
 JAX package's order.
+
+With several devices (``devices=``; by default this process's cards,
+``core.mesh.local_devices()``, when the model is on the card) every batch
+fans out over them as the JAX package shards it over its local mesh: a
+pass's tiles are zero-padded to a bucket that is a multiple of the device
+count, a direct batch of frames to a multiple of it, each device runs the
+model's replica (``core.mesh.replica``) on an equal chunk, in order, and
+the padding is trimmed. With one device the batch goes whole, unpadded.
 """
 from __future__ import annotations
 
@@ -16,45 +24,88 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+import torch
+
+from ..core.constants import CHANNEL_MAX
+from ..core.mesh import (fan_out_devices, map_chunks, pad_to_multiple,
+                         replica, round_to_devices, zero_pad_rows)
 from ..io.png import write_png
 from .data import load_input, plot_prediction_prob
 
+# tiles a padding bucket holds before it is rounded to the devices
+# (dynamorph_tpu/seg/inference.py:22)
+TILE_BUCKET = 8
 
-def _predict_tiles(model, tiles: np.ndarray) -> np.ndarray:
-    """(n, C, x, y) raw tiles -> (n, n_classes, 1, x, y) probabilities, in
-    one device batch. float64 tiles cross as float32; others in their own
-    dtype (``Segment.predict_raw`` scales on the device)."""
+
+def _scaled_probabilities(model, x: torch.Tensor) -> torch.Tensor:
+    """``Segment.predict_raw``'s arithmetic on a batch already on the
+    model's device: cast to float32 and divide by CHANNEL_MAX there."""
+    return model.probabilities(x.to(torch.float32) / CHANNEL_MAX)
+
+
+def _predict_fanned_out(model, batch: np.ndarray, devices) -> np.ndarray:
+    """``predict_raw`` of a host batch whose length is a multiple of the
+    device count, an equal chunk a device."""
+    return map_chunks(_scaled_probabilities, model, batch, devices)
+
+
+def _predict_tiles(model, tiles: np.ndarray, devices=None,
+                   batch_bucket: int = TILE_BUCKET) -> np.ndarray:
+    """(n, C, x, y) raw tiles -> (n, n_classes, 1, x, y) probabilities.
+    float64 tiles cross as float32; others in their own dtype (the model
+    scales them on the device). One device takes the tiles in one batch;
+    several take them zero-padded to a multiple of ``batch_bucket``, that
+    bucket first raised to the device count and rounded down to a multiple
+    of it (dynamorph_tpu/seg/inference.py:22-64), in equal chunks."""
     if tiles.dtype == np.float64:
         tiles = tiles.astype(np.float32)
-    y = model.predict_raw(tiles)
+    devices = fan_out_devices(devices, model.device)
+    if len(devices) == 1:
+        y = replica(model, devices[0]).predict_raw(tiles)
+    else:
+        bucket = round_to_devices(batch_bucket, len(devices))
+        padded = zero_pad_rows(tiles, pad_to_multiple(len(tiles), bucket))
+        y = _predict_fanned_out(model, padded, devices)[:len(tiles)]
     assert y.shape[1:] == (model.n_classes, 1) + tuple(model.input_shape[-2:])
     return y
 
 
 def predict_whole_map_direct(inputs: np.ndarray, model,
-                             frame_batch: int = 4) -> np.ndarray:
+                             frame_batch: int = 4,
+                             devices=None) -> np.ndarray:
     """Whole-frame segmentation, ``frame_batch`` frames a device pass
-    (dynamorph_tpu/seg/inference.py:92-145). The U-Net is fully
+    (dynamorph_tpu/seg/inference.py:92-147). The U-Net is fully
     convolutional, so a frame whose dims are multiples of 32 (the encoder's
-    stride) runs through it directly.
+    stride) runs through it directly. Over several devices ``frame_batch``
+    is raised to their count and rounded down to a multiple of it
+    (:113-123), and the last batch is zero-padded to a multiple of it.
 
     Args: inputs (T, C, Z, X, Y). Returns (T, n_classes, 1, X, Y).
     """
     n_frame, _, _, x_full, y_full = inputs.shape
     if x_full % 32 or y_full % 32:
         raise ValueError("frame dims must be multiples of 32 for direct mode")
+    devices = fan_out_devices(devices, model.device)
+    n_dev = len(devices)
+    if n_dev > 1:
+        frame_batch = round_to_devices(frame_batch, n_dev)
     outs = []
     for t0 in range(0, n_frame, frame_batch):
         batch = inputs[t0: t0 + frame_batch, :, 0]
         if batch.dtype == np.float64:
             batch = batch.astype(np.float32)
-        outs.append(model.predict_raw(batch))
+        if n_dev == 1:
+            outs.append(replica(model, devices[0]).predict_raw(batch))
+            continue
+        padded = zero_pad_rows(batch, pad_to_multiple(len(batch), n_dev))
+        outs.append(_predict_fanned_out(model, padded, devices)[:len(batch)])
     return np.concatenate(outs, 0)
 
 
 def predict_whole_map(file_path, model, use_channels: Sequence[int] = (),
                       out_file_path: Optional[str] = None, n_supp: int = 5,
-                      time_slices: int = 1, rng=None, mode: str = "tiled"):
+                      time_slices: int = 1, rng=None, mode: str = "tiled",
+                      devices=None):
     """Segment a full 5-D stack (reference data.py:350-482).
 
     Args:
@@ -73,6 +124,9 @@ def predict_whole_map(file_path, model, use_channels: Sequence[int] = (),
             the same offsets.
         mode: "tiled" (reference-parity offset ensemble) or "direct"
             (single whole-frame pass, ``predict_whole_map_direct``).
+        devices: the devices every batch fans out over (default: this
+            process's cards when the model is on the card; see the module
+            docstring).
 
     Returns the (T, n_classes, 1, X, Y) float64 probabilities for an array
     input; for a path it writes them, ``<input>.png`` and
@@ -97,7 +151,8 @@ def predict_whole_map(file_path, model, use_channels: Sequence[int] = (),
     inputs = inputs[:, np.array(use_channels)]
 
     if mode == "direct":
-        total_outputs = predict_whole_map_direct(inputs, model)
+        total_outputs = predict_whole_map_direct(inputs, model,
+                                                 devices=devices)
         return _finish_whole_map(file_path, inputs, total_outputs,
                                  out_file_path)
 
@@ -126,7 +181,7 @@ def predict_whole_map(file_path, model, use_channels: Sequence[int] = (),
         # base tiling pass
         tiles = np.stack([tile_at(r * x_size, c * y_size)
                           for r in range(rows) for c in range(cols)])
-        outputs = _predict_tiles(model, tiles)
+        outputs = _predict_tiles(model, tiles, devices)
         concatenated = -np.ones((n_classes, 1, x_full, y_full))
         ct = 0
         for r in range(rows):
@@ -143,7 +198,7 @@ def predict_whole_map(file_path, model, use_channels: Sequence[int] = (),
             tiles = np.stack([
                 tile_at(x_off + r * x_size, y_off + c * y_size)
                 for r in range(rows - 1) for c in range(cols - 1)])
-            outputs = _predict_tiles(model, tiles)
+            outputs = _predict_tiles(model, tiles, devices)
             supp = np.copy(concatenated)
             ct = 0
             for r in range(rows - 1):

@@ -46,6 +46,8 @@ SITE = "C5-Site_0"
 WINDOW = 32
 CHANNELS = [0, 1]
 T = 3
+# the sites of the site-group run (the same stack under two names)
+GROUP_SITES = [SITE, "C5-Site_1"]
 # with a 40 px window, only the cell at (20, 20) of the last frame keeps
 # its window inside the 64 x 64 frame
 SKIP_WINDOW = 40
@@ -154,7 +156,7 @@ def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("fused")
     dirs = {}
     for name in ("jax", "port", "staged", "one_worker", "two_workers",
-                 "jax_skip", "port_skip"):
+                 "jax_skip", "port_skip", "port_fanout"):
         raw = root / name
         _make_site(raw, SITE)
         dirs[name] = (str(raw), str(raw / "supp"))
@@ -173,9 +175,22 @@ def runs(tmp_path_factory):
         run_port_fused(site[name], dirs[name][1], cluster_workers=workers)
     run_port_fused(site["port_skip"], dirs["port_skip"][1],
                    window_size=SKIP_WINDOW, skip_boundary=True)
+    run_port_fused(site["port_fanout"], dirs["port_fanout"][1],
+                   devices=[torch.device("cpu")] * 3)
     mp = pytest.MonkeyPatch()
     try:
         _run_port_staged(site["staged"], dirs["staged"][1], mp)
+        # two sites, three devices, two site groups
+        _stub_port(mp)
+        raw = root / "site_groups"
+        for name in GROUP_SITES:
+            _make_site(raw, name)
+        fused.seg_patch_fused(str(raw), str(raw / "supp"), GROUP_SITES,
+                              _config(), model=TorchStub(), device="cpu",
+                              devices=[torch.device("cpu")] * 3,
+                              site_parallelism=2)
+        for name in GROUP_SITES:
+            dirs[name] = (str(raw), str(raw / "supp" / "C5-supps" / name))
     finally:
         mp.undo()
     return dirs
@@ -285,6 +300,25 @@ def test_fused_probabilities_and_previews_match_jax(runs):
                   if f.startswith("segmentation_"))
     assert maps == sorted(runs["jax_maps"]) == \
         [f"segmentation_{t}.png" for t in range(T)]
+
+
+@pytest.mark.parametrize("run", ["port_fanout"] + GROUP_SITES)
+def test_fused_over_devices_matches_jax(runs, run):
+    """The port's stage with frames over three devices, and
+    ``seg_patch_fused`` with two site groups over three devices, write the
+    JAX package's site pickles, stacks and probabilities (the JAX runs
+    here are one-device; its own 8-device runs are held in
+    tests/test_torch_stream.py), exactly as one device does."""
+    for name in ("cell_positions.pkl", "cell_pixel_assignments.pkl"):
+        _assert_same(load_pickle(os.path.join(runs[run][1], name)),
+                     load_pickle(os.path.join(runs["jax"][1], name)), name)
+    ours, ref = _stacks(runs, run), _stacks(runs, "jax")
+    for t in range(T):
+        _assert_same(ours[t], ref[t], f"stacks_{t}")
+    site = SITE if run == "port_fanout" else run
+    np.testing.assert_array_equal(
+        np.load(os.path.join(runs[run][0], f"{site}_NNProbabilities.npy")),
+        np.load(_site_files(runs, "jax", "_NNProbabilities.npy")))
 
 
 def test_fused_skip_boundary_matches_jax(runs):

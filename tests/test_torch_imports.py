@@ -14,15 +14,16 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "dynamorph_tpu_torch"
 
 # Imports every port module (and chip_smoke.py) with jax and the JAX package
-# blocked, and sklearn, cv2, matplotlib, h5py, tensorflow and torchvision,
-# which the card's machine lacks (matplotlib, cv2 and h5py at least once) or
-# which no port module may import at module level. The blocker matches "dynamorph_tpu" and "dynamorph_tpu.*"
+# blocked, and sklearn, cv2, matplotlib, h5py, tensorflow, torchvision,
+# seaborn, pandas and imageio, which the card's machine lacks (matplotlib,
+# cv2 and h5py at least once) or which no port module may import at module
+# level. The blocker matches "dynamorph_tpu" and "dynamorph_tpu.*"
 # exactly: a prefix test would also block dynamorph_tpu_torch.
 _BLOCKED_IMPORT = r"""
 import importlib, importlib.abc, pkgutil, sys
 sys.modules["jax"] = None
 _HOST_ONLY = ("sklearn", "cv2", "matplotlib", "h5py", "tensorflow",
-              "torchvision")
+              "torchvision", "seaborn", "pandas", "imageio")
 
 class _Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -67,6 +68,13 @@ _SLICE_MODULES = [
     "dynamorph_tpu_torch.analysis.imagenet_baseline",
     "dynamorph_tpu_torch.core.mesh", "dynamorph_tpu_torch.nn.batchnorm",
     "dynamorph_tpu_torch.train.sharded_loss",
+    # slice J: the figures, and the modules its fan-out changed
+    "dynamorph_tpu_torch.analysis.plots", "dynamorph_tpu_torch.analysis.raster",
+    "dynamorph_tpu_torch.core.device", "dynamorph_tpu_torch.seg.inference",
+    "dynamorph_tpu_torch.pipeline.patch_vae",
+    "dynamorph_tpu_torch.pipeline.fused", "dynamorph_tpu_torch.pipeline.stream",
+    "dynamorph_tpu_torch.pipeline.orchestrator",
+    "dynamorph_tpu_torch.reduce.scatter",
 ]
 
 

@@ -167,6 +167,12 @@ def chains(weights, tmp_path_factory):
                                     device="cpu")
             mp.setattr(stream, "encode_batch", real_encode)
             out[f"stream_{case}"] = (raw, supp)
+        # frames over three devices, the two sites in two groups
+        raw, supp = out["stream_fanout"] = _sites(root / "stream_fanout")
+        stream.seg_patch_stream(raw, supp, SITES, _port_config(weights),
+                                patch_type="mat", device="cpu",
+                                devices=[torch.device("cpu")] * 3,
+                                site_parallelism=2)
 
         raw, supp = out["port"] = _sites(root / "port")
         cfg = root / "port.yml"
@@ -305,6 +311,29 @@ def test_run_pipeline_streaming_matches_jax(chains):
             _assert_same(sa, sb, f"{site} stacks_{t}")
 
 
+def test_stream_over_devices_matches_port_and_jax(chains):
+    """The streaming encode with frames over three devices and the two
+    sites in two groups: file paths, static patches and both latents
+    equal the one-device stream's bit for bit, and the JAX package's
+    run_pipeline (its 8-device CPU mesh: site- and frame-parallel) within
+    the limits above."""
+    ours = _well_artifacts(chains["stream_fanout"])
+    one = _well_artifacts(chains["stream_mat"])
+    assert list(ours) == list(one)
+    for name in ours:
+        _assert_same(ours[name], one[name], name)
+    ref = _well_artifacts(chains["jax"])
+    for name in ours:
+        if not name.startswith("weights/"):
+            _assert_same(ours[name], ref[name], name)
+    zb = ours[f"weights/{WELL}_latent_space.pkl"]
+    assert np.abs(zb - ref[f"weights/{WELL}_latent_space.pkl"]).max() <= \
+        LATENT_ATOL
+    np.testing.assert_array_equal(
+        ours[f"weights/{WELL}_latent_space_after.pkl"],
+        ref[f"weights/{WELL}_latent_space_after.pkl"])
+
+
 def test_run_pipeline_streaming_stage_lists_match_jax(chains):
     ex = chains["executed"]
     assert ex["port_fresh"] == ex["jax_fresh"] == [
@@ -405,7 +434,7 @@ FALLBACKS = {
                          ["seg_patch_fused"] + GRAPH[3:]),
     # streaming without patch.fused: the staged graph
     "streaming_unfused": ({}, True, "VQ_VAE_z16", GRAPH, GRAPH),
-    # sites in parallel: one card, so one after another, with a warning
+    # sites in parallel: handed to the fused stage, as the JAX package does
     "fused_site_parallelism": (
         dict(fused=True, fused_site_parallelism=4), False, "VQ_VAE_z16",
         GRAPH, ["seg_patch_fused"] + GRAPH[3:]),
@@ -413,9 +442,12 @@ FALLBACKS = {
 
 
 def _record(mp, module, names, calls):
+    """Each stage function records its name and the site parallelism it
+    was handed (None where it takes none)."""
     for name in names:
         mp.setattr(module, name,
-                   lambda *a, _n=name, **k: calls.append(_n) or [])
+                   lambda *a, _n=name, **k: calls.append(
+                       (_n, k.get("site_parallelism"))) or [])
 
 
 @pytest.mark.parametrize("case", sorted(FALLBACKS))
@@ -423,8 +455,9 @@ def test_run_pipeline_branches_match_jax(case, tmp_path, monkeypatch,
                                         caplog):
     """Which stages run (and are returned) for patch.fused, streaming and
     each fallback: the port's run_pipeline against the JAX package's, the
-    stage functions of both stubbed (resume off). A site parallelism above
-    one is ignored with a warning."""
+    stage functions of both stubbed (resume off). ``fused_site_parallelism``
+    reaches the fused and streaming stages as the JAX package hands it
+    over, with no warning."""
     patch, streaming, network, stages, executed = FALLBACKS[case]
     fns = ["segmentation", "instance_segmentation", "extract_patches",
            "build_trajectories", "assemble_vae", "process_vae",
@@ -454,5 +487,7 @@ def test_run_pipeline_branches_match_jax(case, tmp_path, monkeypatch,
                                  configs[1], stages=stages, resume=False)
     assert got == want == executed
     assert ours == ref
-    ignored = "fused_site_parallelism 4 ignored" in caplog.text
-    assert ignored == ("fused_site_parallelism" in patch)
+    handed = {p for n, p in ours if n in ("seg_patch_fused",
+                                          "seg_patch_stream")}
+    assert handed <= {patch.get("fused_site_parallelism")}
+    assert "fused_site_parallelism" not in caplog.text
