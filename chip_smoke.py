@@ -5510,7 +5510,8 @@ def rank_main(argv) -> int:
         from dynamorph_tpu_torch.cli import run_training
 
         t0 = time.perf_counter()
-        _, hist = run_training.main(["-c", extra[0], *flags])
+        with deterministic_cudnn(torch):
+            _, hist = run_training.main(["-c", extra[0], *flags])
         torch.cuda.synchronize()
         out = dict(hist=hist, wall=time.perf_counter() - t0)
         out["launches"] = dict(vq_indices=vq.vq_indices.launches,
@@ -5551,6 +5552,20 @@ def rank_main(argv) -> int:
     print("RANK_RESULT:" + json.dumps(out), flush=True)
     mesh.shutdown_multihost()
     return 0
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    """cuDNN's deterministic algorithms for a training run that phase 18
+    holds bit for bit against another: the default ones accumulate with
+    atomics, so two runs of one path differ (Adam then turns the noise on
+    zero-gradient biases into steps of about lr)."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
 
 
 def mr_timed_steps(torch, dev):
@@ -5864,14 +5879,24 @@ def mr_hold(what, ranks, one, limit_ok=True):
 
 
 def mr_training_config(root, world_tag):
-    """run_training's config for phase 16: phase 5's training patches,
-    MR_EPOCHS epochs, half of them validation (one full batch)."""
+    """run_training's config for phases 16 and 18: phase 5's training
+    patches, MR_EPOCHS epochs, half of them validation (one full batch),
+    from seeded start weights (``mr_start.pt``, written once), so every
+    run starts from the same model."""
     cfg = os.path.join(root, f"mr_train_{world_tag}.yml")
+    start = os.path.join(root, "mr_start.pt")
+    if not os.path.exists(start):
+        import torch
+        from dynamorph_tpu_torch.models import VQVAEz32
+
+        torch.manual_seed(SEED + 18)
+        torch.save(VQVAEz32(**TRAIN_NET).state_dict(), start)
     with open(os.path.join(root, "train_cfg.yml")) as f:
         text = f.read()
     text = text.replace("train_out", f"mr_train_out_{world_tag}")
     text = text.replace(f"n_epochs: {TRAIN_EPOCHS}", f"n_epochs: {MR_EPOCHS}")
     text = text.replace("val_split_ratio: 0.15", f"val_split_ratio: {MR_VAL}")
+    text += f"  start_model_path: '{start}'\n"
     with open(cfg, "w") as f:
         f.write(text)
     return cfg, os.path.join(root, f"mr_train_out_{world_tag}", "vqvae32")
@@ -6286,6 +6311,7 @@ def phase_multirank(torch, vq, root, dev, card, well, weights):
         + (f"; one rank over NCCL {nccl['timing']['step_ms']:.3f} ms"
            if nccl else "") + tag)
     return dict(secs=secs, world=world, backend=backend, timing=timing,
+                hist=outs[0]["hist"], out=out,
                 nccl=None if nccl is None else nccl["timing"],
                 launches=dict(vq_indices=outs[0]["launches"]["vq_indices"],
                               vq_lookup=outs[0]["launches"]["vq_lookup"]),
@@ -6682,6 +6708,358 @@ def phase_fan_out(torch, vq, root, dev, card, staged, weights, well_data):
                 stream=streamed, figures=figures)
 
 
+# ---------------------------------------------------------------- phase 18
+#
+# Slice K: run_training over the process's devices (one local rank a device;
+# on a machine with one card two gloo ranks share it, as phase 16's ranks
+# do), KAZE on the card against the CPU, the configured tile bucket
+# through run_segmentation, and the figures at thickness 1 and -1 with a
+# colour map outside the six tables the figures had before.
+LR_WORLD = 2
+KAZE_PATCHES = 64
+KAZE_LDET_RTOL = 1e-4       # card vs CPU, max |d det| over max |det|
+KAZE_PT_TOL = 0.5           # the oracle test's limits (tests/
+KAZE_SIZE_RTOL = 0.05       # test_torch_kaze_oracle.py)
+KAZE_ANGLE_TOL = 0.1
+KAZE_UNMATCHED_MAX = 0.05
+KAZE_DESC_TOL = 0.05
+SEG_BUCKET = 16
+LR_STATS = "ph18_rank{}.json"
+
+
+def local_rank_counted(config, seed):
+    """One local rank of phase 18's ``run_training.run``: the port's own
+    rank body (``run_training._local_rank_main``) with the kernels'
+    launches counted and, after it, MR_TIMED data-parallel steps timed;
+    both written beside the rank's output. Returns the history."""
+    import torch
+    import torch.distributed as dist
+
+    from dynamorph_tpu_torch.cli import run_training
+    from dynamorph_tpu_torch.core import mesh
+    from dynamorph_tpu_torch.ops import vq
+
+    torch.set_num_threads(MR_THREADS)
+    vq.vq_indices.launches = vq.vq_lookup.launches = 0
+    t0 = time.perf_counter()
+    with deterministic_cudnn(torch):
+        hist = run_training._local_rank_main(config, seed)
+    torch.cuda.synchronize()
+    out = dict(rank=mesh.process_index(), world=mesh.process_count(),
+               backend=dist.get_backend(), device=str(mesh.rank_device()),
+               wall=time.perf_counter() - t0,
+               launches=dict(vq_indices=vq.vq_indices.launches,
+                             vq_lookup=vq.vq_lookup.launches))
+    out["timing"] = mr_timed_steps(torch, mesh.rank_device())
+    with open(os.path.join(config.training.weights_dirs[-1],
+                           LR_STATS.format(out["rank"])), "w") as f:
+        json.dump(out, f)
+    return hist
+
+
+def ph18_training(torch, vq, root, dev, multirank, train_run, tag):
+    """``run_training.run(devices=[card] * LR_WORLD)`` on phase 16's
+    config against phase 16's two-rank ``--multihost`` run, both from the
+    same start weights with cuDNN's deterministic algorithms: the history
+    and model.pt bit for bit, else within phase 16's step limits (losses
+    STEP_LOSS_RTOL, buffers STEP_BN_ATOL) and Adam's reach (a step moves
+    a weight by about lr either way); launches and a step's time a
+    rank."""
+    from dynamorph_tpu_torch.cli import run_training
+    from dynamorph_tpu_torch.config import load_config
+    from dynamorph_tpu_torch.core import mesh
+
+    cfg_path, out = mr_training_config(root, "local")
+    cfg = load_config(cfg_path)
+    n_val = int(np.floor(MR_VAL * N_TRAIN_PATCHES))
+    steps = MR_EPOCHS * ((N_TRAIN_PATCHES - n_val) // TRAIN_BATCH)
+    val = MR_EPOCHS * (n_val // TRAIN_BATCH)
+    # the ranks unpickle the body by module name: this script's, not
+    # __main__'s
+    import chip_smoke
+
+    real = run_training._local_rank_main
+    run_training._local_rank_main = chip_smoke.local_rank_counted
+    threads = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = str(MR_THREADS)   # as phase 16's ranks
+    vq.vq_indices.launches = vq.vq_lookup.launches = 0
+    try:
+        np.random.seed(SEED)
+        t0 = time.perf_counter()
+        model, hist = run_training.run(cfg, devices=[dev] * LR_WORLD)
+        wall = time.perf_counter() - t0
+    finally:
+        run_training._local_rank_main = real
+        if threads is None:
+            del os.environ["OMP_NUM_THREADS"]
+        else:
+            os.environ["OMP_NUM_THREADS"] = threads
+    here = (vq.vq_indices.launches, vq.vq_lookup.launches)
+    ranks = []
+    for r in range(LR_WORLD):
+        with open(os.path.join(root, "mr_train_out_local",
+                               LR_STATS.format(r))) as f:
+            ranks.append(json.load(f))
+    for o in ranks:
+        log(f"  local rank {o['rank']}/{o['world']} on {o['device']} over "
+            f"{o['backend']}: vq_indices {o['launches']['vq_indices']} (want "
+            f"{steps}), vq_lookup {o['launches']['vq_lookup']} (want {val}); "
+            f"step at batch {TRAIN_BATCH} ({o['timing']['rows']} rows a "
+            f"rank) {o['timing']['step_ms']:.3f} ms, collectives share "
+            f"{o['timing']['collective_share']:.4f}{tag}")
+        if o["launches"] != dict(vq_indices=steps, vq_lookup=val):
+            raise AssertionError("a local rank did not launch vq_indices "
+                                 "once a step and vq_lookup once a "
+                                 "validation step")
+    if here != (0, 0) or ranks[0]["backend"] != "gloo":
+        raise AssertionError(f"the run trained in this process ({here}) or "
+                             f"over {ranks[0]['backend']}")
+    # phase 5 ran run_training with devices=None on the one card: in this
+    # process, its launches counted here
+    if len(mesh.fan_out_devices(None, dev)) != 1 or \
+            train_run["launches_indices"] == 0:
+        raise AssertionError("devices=None did not train in this process")
+    want = multirank["hist"]
+    loss_rel = max(abs(h[s][k] - w[s][k]) / max(abs(w[s][k]), 1e-6)
+                   for h, w in zip(hist, want) for s in ("train", "val")
+                   for k in w[s])
+    a = torch.load(os.path.join(multirank["out"], "model.pt"),
+                   weights_only=True)
+    b = torch.load(os.path.join(out, "model.pt"), weights_only=True)
+    params = dict(model.named_parameters())
+    w_err = max(float((a[k].float() - b[k].float()).abs().max())
+                for k in a if k in params)
+    buf_err = max([float((a[k].float() - b[k].float()).abs().max())
+                   for k in a if k not in params] or [0.0])
+    sd = model.state_dict()
+    returned = all(torch.equal(sd[k].cpu(), v) for k, v in b.items())
+    bit = len(hist) == len(want) and hist == want and all(
+        torch.equal(a[k], b[k]) for k in a)
+    w_limit = 2 * steps * 1e-4          # Adam at lr 1e-4, either run
+    log(f"  run_training.run(devices=[{dev}] x {LR_WORLD}): {wall:.3f} s; "
+        f"against phase 16's {multirank['world']} ranks over "
+        f"{multirank['backend']}: bit-equal {bit}; losses {loss_rel:.3e} "
+        f"relative (limit {STEP_LOSS_RTOL}), weights {w_err:.3e} (limit "
+        f"{w_limit:.1e}), buffers {buf_err:.3e} (limit {STEP_BN_ATOL}); the "
+        f"returned model is rank 0's model.pt: {returned}{tag}")
+    if not returned or len(hist) != len(want) or not bit and not (
+            loss_rel <= STEP_LOSS_RTOL and w_err <= w_limit
+            and buf_err <= STEP_BN_ATOL):
+        raise AssertionError("the local ranks' run differs from phase 16's")
+    return dict(wall=wall, bit_equal=bit, loss_rel=loss_rel, w_err=w_err,
+                buf_err=buf_err, ranks=ranks,
+                launches=[o["launches"] for o in ranks])
+
+
+def kaze_match(a, b):
+    """One-to-one matches of keypoints ``a`` to ``b`` (``kaze.KeyPoints``)
+    within the oracle test's position, size and angle limits: the number
+    matched and the pairs."""
+    used, pairs = set(), []
+    for i in range(len(a)):
+        d = np.hypot(b.pt[:, 0] - a.pt[i, 0], b.pt[:, 1] - a.pt[i, 1])
+        rs = np.abs(b.size - a.size[i]) / a.size[i]
+        da = np.deg2rad((b.angle.astype(np.float64) - a.angle[i]) % 360.0)
+        da = np.minimum(da, 2 * np.pi - da)
+        for j in np.argsort(d, kind="stable"):
+            if d[j] > KAZE_PT_TOL:
+                break
+            if rs[j] <= KAZE_SIZE_RTOL and da[j] <= KAZE_ANGLE_TOL and \
+                    j not in used:
+                used.add(j)
+                pairs.append((i, j))
+                break
+    return pairs
+
+
+def ph18_kaze(torch, dev, data, tag):
+    """``extract_features`` of KAZE_PATCHES of phase 4's patches on the
+    card (seconds a patch), and the card's scale space, keypoints and
+    descriptors against the CPU's on the same slices, with a TF32
+    control."""
+    import contextlib
+
+    from dynamorph_tpu_torch.analysis import kaze
+    from dynamorph_tpu_torch.analysis.morphology import extract_features
+
+    patches = data[:KAZE_PATCHES, :, 0]
+    extract_features(patches[0], device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = [extract_features(p, device=dev) for p in patches]
+    torch.cuda.synchronize()
+    per_patch = (time.perf_counter() - t0) / len(patches)
+    if any(f is None or f.shape != (2, 32 * 64) for f in feats):
+        raise AssertionError("extract_features failed on the card")
+    stack = torch.from_numpy(patches.astype("uint8").reshape(
+        -1, *patches.shape[-2:]))
+    card = kaze.scale_space(stack.to(dev))
+    cpu = kaze.scale_space(stack)
+    scale = float(cpu.ldet.abs().max())
+    ldet_err = float((card.ldet.cpu() - cpu.ldet).abs().max()) / scale
+
+    @contextlib.contextmanager
+    def tf32():
+        saved = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            yield
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = saved
+
+    strict, kaze.fp32_strict = kaze.fp32_strict, tf32
+    try:
+        control = float((kaze.scale_space(stack.to(dev)).ldet.cpu()
+                         - cpu.ldet).abs().max()) / scale
+    finally:
+        kaze.fp32_strict = strict
+    card_kp = kaze.describe(card, kaze.detect(card))
+    cpu_kp = kaze.describe(cpu, kaze.detect(cpu))
+    n = n_matched = 0
+    desc_err = 0.0
+    for (kc, dc), (kp, dp) in zip(card_kp, cpu_kp):
+        top = np.argsort(-kp.response, kind="stable")[:32]
+        pairs = kaze_match(kp.take(top), kc)
+        n += len(top)
+        n_matched += len(pairs)
+        desc_err = max([desc_err] + [float(np.linalg.norm(dp[top[i]] - dc[j]))
+                                     for i, j in pairs])
+    unmatched = 1 - n_matched / max(n, 1)
+    log(f"  KAZE: extract_features {per_patch:.4f} s a patch on the card "
+        f"({len(patches)} patches of 2 x {patches.shape[-1]}^2); card vs CPU"
+        f" on their {len(stack)} slices: Hessian determinant {ldet_err:.3e}"
+        f" of its largest (limit {KAZE_LDET_RTOL:g}; TF32 control "
+        f"{control:.3e}), the CPU's {n} strongest keypoints unmatched "
+        f"{unmatched:.4f} (limit {KAZE_UNMATCHED_MAX}), matched descriptors"
+        f" {desc_err:.3e} in L2 (limit {KAZE_DESC_TOL}){tag}")
+    if not ldet_err <= KAZE_LDET_RTOL or not unmatched <= KAZE_UNMATCHED_MAX \
+            or not desc_err <= KAZE_DESC_TOL:
+        raise AssertionError("KAZE on the card differs from the CPU")
+    if not control > KAZE_LDET_RTOL:
+        raise AssertionError("the TF32 control did not land over its limit")
+    return dict(s_per_patch=per_patch, ldet_err=ldet_err, control=control,
+                unmatched=unmatched, desc_err=desc_err, keypoints=n)
+
+
+def ph18_segmentation(torch, root, dev, tag):
+    """``run_segmentation -m segmentation`` with ``batch_size:
+    SEG_BUCKET`` on phase 8's site over [card, card]: every pass's padded
+    batch as dynamorph_tpu/seg/inference.py:33-39 pads it, and the
+    probabilities against one device's tiled run (phase 8's) within
+    SEG_PROB_ATOL."""
+    from dynamorph_tpu_torch.cli import run_segmentation
+    from dynamorph_tpu_torch.core import mesh
+    from dynamorph_tpu_torch.seg import inference
+
+    src = os.path.join(root, "seg_raw", "D4-Site_0.npy")
+    raw = os.path.join(root, "seg_raw18")
+    os.makedirs(raw)
+    os.link(src, os.path.join(raw, "D4-Site_0.npy"))
+    cfg = os.path.join(root, "seg_bucket.yml")
+    with open(os.path.join(root, "seg_tiled.yml")) as f:
+        text = f.read()
+    with open(cfg, "w") as f:
+        f.write(text.replace("seg_raw", "seg_raw18").replace(
+            "batch_size: 8", f"batch_size: {SEG_BUCKET}"))
+    padded = []
+    fanned, local = inference._predict_fanned_out, mesh.local_devices
+
+    def spy(model, batch, devices):
+        padded.append(len(batch))
+        return fanned(model, batch, devices)
+    inference._predict_fanned_out = spy
+    mesh.local_devices = lambda: [dev, dev]
+    try:
+        np.random.seed(SEED)
+        t0 = time.perf_counter()
+        run_segmentation.main(["-m", "segmentation", "-c", cfg,
+                               "--device", dev.type])
+        wall = time.perf_counter() - t0
+    finally:
+        inference._predict_fanned_out, mesh.local_devices = fanned, local
+    got = np.load(os.path.join(raw, "D4-Site_0_NNProbabilities.npy"))
+    n = SEG_FRAME // SEG_WINDOW
+    bucket = max(SEG_BUCKET, 2) - max(SEG_BUCKET, 2) % 2
+    want_pad = [-(-k // bucket) * bucket
+                for k in [n * n] + [(n - 1) ** 2] * SEG_SUPP] * SEG_T
+    frames = np.load(src)
+    model = seg_model(torch, SEED, dev)
+    np.random.seed(SEED)
+    one = inference.predict_whole_map(frames, model, use_channels=[0, 1],
+                                      n_supp=SEG_SUPP, devices=[dev])
+    err = float(np.max(np.abs(got - one)))
+    log(f"  run_segmentation, batch_size {SEG_BUCKET}, over [card, card]: "
+        f"{wall:.3f} s; padded batches {padded} (the JAX rule: "
+        f"{want_pad}); max |d prob| from one device {err:.3e} (limit "
+        f"{SEG_PROB_ATOL:g}){tag}")
+    if padded != want_pad or not err <= SEG_PROB_ATOL:
+        raise AssertionError("the configured tile bucket was not used")
+    return dict(padded=padded, err=err, wall=wall)
+
+
+def ph18_figures(root, tag):
+    """The box and trajectory figures at thickness 1 and cv2.FILLED (-1),
+    and a scatter in a colour map outside the earlier six, written here;
+    their pixels read back."""
+    from dynamorph_tpu_torch.analysis import plots
+    from dynamorph_tpu_torch.analysis.raster import colormap_lut
+    from dynamorph_tpu_torch.io.png import read_png
+
+    out = os.path.join(root, "plots18")
+    os.makedirs(out)
+    rng = np.random.RandomState(SEED + 18)
+    frame = np.zeros((128, 128), np.uint16)
+    files = {}
+    for th in (1, -1):
+        files[f"boxes{th}"] = plots.draw_cell_boxes(
+            frame, [(64, 64)], os.path.join(out, f"bx{th}.png"), half=10,
+            colors=[(255, 0, 0)], thickness=th)
+    files["track1"] = plots.plot_trajectory_on_frame(
+        frame, np.array([[64, 20], [64, 100]]), os.path.join(out, "tr.png"),
+        color=(0, 255, 0), thickness=1, origin=np.zeros(2, np.int64))
+    files["magma"] = plots.plot_embedding_scatter(
+        rng.randn(500, 2), os.path.join(out, "es.png"),
+        values=rng.rand(500), cmap="magma")
+    thin = read_png(files["boxes1"])
+    filled = read_png(files["boxes-1"])
+    track = read_png(files["track1"])
+    lut = colormap_lut("magma")
+    checks = {
+        "thin box: one-pixel rim, empty inside":
+            int((thin.max(2) > 0).sum()) == 80 and not thin[60, 64].any(),
+        "filled box: 21 x 21 pixels": int((filled.max(2) > 0).sum()) == 441,
+        "thin track: one row of 81 pixels":
+            int((track.max(2) > 0).sum()) == 81,
+        "magma table: 256 colours": lut.shape == (256, 3),
+    }
+    log(f"  figures at thickness 1 and -1 and in magma: "
+        + ", ".join(f"{k} {v}" for k, v in checks.items()) + tag)
+    if not all(checks.values()):
+        raise AssertionError(f"the figures' pixels: {checks}")
+    return dict(checks=checks)
+
+
+def phase_slice_k(torch, vq, root, dev, card, multirank, train_run,
+                  well_data):
+    phase("18. run_training over the local devices (two ranks on the card), "
+          "KAZE on the card, the configured tile bucket, thin and filled "
+          "lines and every colour map")
+    tag = f" [{card}]"
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()        # the ranks share the card
+    training = ph18_training(torch, vq, root, dev, multirank, train_run, tag)
+    kz = ph18_kaze(torch, dev, well_data, tag)
+    seg = ph18_segmentation(torch, root, dev, tag)
+    figures = ph18_figures(root, tag)
+    secs = time.perf_counter() - t_phase
+    log(f"phase 18 took {secs:.1f} s")
+    return dict(secs=secs, training=training, kaze=kz, seg=seg,
+                figures=figures)
+
+
 def main() -> int:
     # one card: the first of those visible, so device_count() is what the
     # run uses (set before torch initialises CUDA)
@@ -6747,6 +7125,8 @@ def main() -> int:
             main_run["weights"])
         fan = phase_fan_out(torch, vq, root, dev, smi, raw_pcs,
                             main_run["weights"], main_run["data"])
+        slice_k = phase_slice_k(torch, vq, root, dev, smi, multirank,
+                                train_run, main_run["data"])
 
     z16 = timed["z16 encode"]
     ti = train_timed["indices"]
@@ -6788,6 +7168,8 @@ def main() -> int:
         "per_rank_shape": multirank["kernels"]["vq_lookup"],
         "launches_fan_out_stream_path": fan["stream"]["launches"]["vq_lookup"],
         "launches_fan_out_by_device": fan["stream"]["by_device"],
+        "launches_local_ranks_per_rank": [
+            l["vq_lookup"] for l in slice_k["training"]["launches"]],
         "z32": {k: timed["z32 encode"][k] for k in
                 ("ms", "ms_per_call", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "bound_share", "rowwise_ms")},
@@ -6828,6 +7210,8 @@ def main() -> int:
         "launches_fan_out_stream_path":
             fan["stream"]["launches"]["vq_indices"],
         "per_rank_shape": multirank["kernels"]["vq_indices"],
+        "launches_local_ranks_per_rank": [
+            l["vq_indices"] for l in slice_k["training"]["launches"]],
         "flips_vs_plain": {k: indices[k]["flips"] for k in indices},
         "flip_rate_vs_f64": {k: indices[k]["f64_rate"] for k in indices},
     }]
@@ -6892,8 +7276,15 @@ def main() -> int:
         f"seg_patch_fused a site at site parallelism 1 / 2 "
         f"{fan['fused'][1]['per_site']:.3f} / "
         f"{fan['fused'][2]['per_site']:.3f} s, the stream's z_before "
-        f"{fan['stream']['err']:.3e}, phase 17 {fan['secs']:.1f} s; whole "
-        f"script "
+        f"{fan['stream']['err']:.3e}, phase 17 {fan['secs']:.1f} s; "
+        f"run_training over {LR_WORLD} local ranks: step "
+        f"{slice_k['training']['ranks'][0]['timing']['step_ms']:.3f} ms a "
+        f"rank, bit-equal to phase 16: {slice_k['training']['bit_equal']}; "
+        f"KAZE {slice_k['kaze']['s_per_patch']:.4f} s a patch, Hessian "
+        f"determinant card vs CPU {slice_k['kaze']['ldet_err']:.3e} (TF32 "
+        f"control {slice_k['kaze']['control']:.3e}); tile bucket "
+        f"{SEG_BUCKET} {slice_k['seg']['err']:.3e} from one device; phase "
+        f"18 {slice_k['secs']:.1f} s; whole script "
         f"{time.perf_counter() - t_start:.1f} s [{smi}]")
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())

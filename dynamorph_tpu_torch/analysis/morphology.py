@@ -4,30 +4,59 @@ HiddenStateExtractor/cv2_feature.py): cell size and contour area
 (:61-75), intensity percentiles (:78-112), the PCA long-axis angle with the
 bounding box of the rotated mask (:146-197) and the unrotated aspect ratio
 (:200-217). Host numpy, with ``native/contours`` and
-``ops.geometry.warp_image`` in place of cv2.
-
-KAZE descriptors (``extract_features``, cv2_feature.py:20-51) have no
-cv2-free counterpart here: the function raises.
+``ops.geometry.warp_image`` in place of cv2. The KAZE descriptors
+(``extract_features``, cv2_feature.py:20-51) come from
+``analysis/kaze.py``, OpenCV's KAZE written in torch, on the card by
+default.
 """
 from __future__ import annotations
 
 import cmath
-from typing import List, Tuple
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from ..core.constants import CHANNEL_MAX
+from ..core.device import resolve_device
 from ..native.contours import bounding_rect, contour_area, find_contours
 from ..ops.geometry import rotation_matrix_2d, warp_image
+from . import kaze
 
 
-def extract_features(x: np.ndarray, vector_size: int = 32):
-    """KAZE descriptors: not ported (OpenCV's KAZE has no counterpart in
-    the port); raises."""
-    raise NotImplementedError(
-        "KAZE features (extract_features) need cv2.KAZE_create, which the "
-        "port does not use; run dynamorph_tpu.analysis.morphology."
-        "extract_features in the JAX package for them")
+def extract_features(x: np.ndarray, vector_size: int = 32,
+                     device: Optional[Union[str, torch.device]] = None
+                     ) -> Optional[np.ndarray]:
+    """KAZE descriptors per channel slice (reference cv2_feature.py:20-51,
+    dynamorph_tpu/analysis/morphology.py:26-49): each slice of
+    ``x.astype("uint8")`` gets ``cv2.KAZE_create()``'s keypoints
+    (``analysis/kaze.py``, on ``device``, the card by default), the
+    ``vector_size`` strongest by a stable sort on descending response,
+    and their 64-d descriptors, flattened and zero-padded to
+    ``vector_size * 64``. The (C, vector_size * 64) rows are float32 when
+    every slice fills its row, else float64 (the padding's zeros promote
+    them, as ``np.concatenate`` does in the JAX package). On any error the
+    function prints ``Error: ...`` and returns None, as the JAX one does.
+    """
+    dev = resolve_device("cuda" if device is None else device)
+    x = x.astype("uint8")
+    try:
+        if x.ndim != 3 or min(x.shape[1:]) < 3:
+            raise ValueError(f"KAZE takes 2-D slices of at least 3 x 3 "
+                             f"pixels, not a stack of shape {x.shape}")
+        found = kaze.detect_and_compute(torch.from_numpy(x).to(dev),
+                                        top=vector_size)
+        dscs = []
+        needed = vector_size * kaze.DESCRIPTOR_SIZE
+        for kp, dsc in found:
+            dsc = dsc.flatten() if len(kp) else np.zeros((0,))
+            if dsc.size < needed:
+                dsc = np.concatenate([dsc, np.zeros(needed - dsc.size)])
+            dscs.append(dsc)
+        return np.stack(dscs, 0)
+    except Exception as e:  # the JAX function's contract: None, not raise
+        print("Error: " + str(e))
+        return None
 
 
 def _largest_contour(mask: np.ndarray) -> np.ndarray:

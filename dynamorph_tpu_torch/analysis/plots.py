@@ -8,10 +8,9 @@ first four).
   ``plot_patches`` (16-bit PNGs), ``save_patch_movie`` (a GIF through PIL,
   ``1000 / fps`` ms a frame), ``plot_instance_separation`` (tab10 blends,
   written in cv2's BGR file order), ``draw_cell_boxes`` and
-  ``plot_trajectory_on_frame`` (cv2 5.0's thick rectangles and lines,
-  ported in ``analysis/raster.py``; a trajectory segment with an end
-  outside the frame is the one case where cv2 clips first and its edge
-  pixels may differ).
+  ``plot_trajectory_on_frame`` (cv2 5.0's rectangles and lines at any
+  thickness cv2 takes, filled rectangles included, ported in
+  ``analysis/raster.py``).
 - The matplotlib and seaborn figures are numpy rasters in the style of
   ``reduce/scatter.py``: the same numbers (the correlation matrix, the
   explained-variance curve, the zoomed limits, the histograms) in
@@ -39,8 +38,11 @@ from ..reduce.scatter import (MARGIN, PANEL, draw_frame, scatter_panel,
 from .pc_samples import enhance_contrast
 from .raster import _circle, colormap_lut, line, map_colours, rectangle
 
-TAB10 = colormap_lut("tab10")
-C0, C1 = TAB10[0].astype(np.float64), TAB10[1].astype(np.float64)
+
+
+def _tab10(i: int) -> np.ndarray:
+    """matplotlib's C0, C1, ...: colour ``i`` of tab10, as float64."""
+    return colormap_lut("tab10")[i].astype(np.float64)
 DPI = 300                   # the JAX figures' savefig dpi
 MPL_MARGIN = 0.05           # matplotlib's default autoscale margin
 GAP = 16                    # px between side-by-side panels
@@ -161,7 +163,7 @@ def plot_instance_separation(frame: np.ndarray, positions: np.ndarray,
         if cid < 0:
             continue
         pts = positions[position_labels == cid]
-        color = TAB10[int(cid) % 10] / 255.0 * 255.0
+        color = colormap_lut("tab10")[int(cid) % 10] / 255.0 * 255.0
         mat[pts[:, 0], pts[:, 1]] = (
             (1 - alpha) * mat[pts[:, 0], pts[:, 1]] + alpha * color)
     write_png(path, mat.astype(np.uint8))
@@ -213,7 +215,7 @@ def plot_frame_matching(frame0: np.ndarray, frame1: np.ndarray,
     segments = frame_matching_segments(f0.shape[1], positions0, positions1,
                                        pairs, gap)
     for k, (xs, ys) in enumerate(segments):
-        colour = tuple(int(v) for v in TAB10[k % 10])
+        colour = tuple(int(v) for v in _tab10(k % 10))
         p, q = (int(round(xs[0])), int(round(ys[0]))), \
             (int(round(xs[1])), int(round(ys[1])))
         line(canvas, p, q, colour, 2)
@@ -266,7 +268,7 @@ def embedding_points(embedding: np.ndarray, labels=None, values=None,
     elif labels is not None:
         colours, filled = map_colours(labels, cmap), False
     else:
-        colours, filled = np.repeat(TAB10[:1], len(x), 0), True
+        colours, filled = np.repeat(colormap_lut("tab10")[:1], len(x), 0), True
     xlim, ylim = zoom_limits(x, y, zoom_cutoff)
     return x, y, colours, filled, xlim, ylim
 
@@ -311,9 +313,9 @@ def plot_explained_variance(explained_variance_ratio: np.ndarray,
     x, y = explained_variance_curve(explained_variance_ratio)
     img = _blank()
     rows, cols = _to_px(x, y, _autoscale(x), (0.0, 1.0))
-    _polyline(img, rows, cols, C0)
+    _polyline(img, rows, cols, _tab10(0))
     for r, c in zip(np.rint(rows).astype(int), np.rint(cols).astype(int)):
-        _circle(img, c, r, 6, C0.astype(np.float32))
+        _circle(img, c, r, 6, _tab10(0).astype(np.float32))
     draw_frame(img)
     write_rgb_png(path, img)
     return path
@@ -346,7 +348,8 @@ def plot_pc_vs_property(pc_values: np.ndarray, prop: np.ndarray, path: str,
         img[MARGIN:MARGIN + h, PANEL[1] - MARGIN - BAR:PANEL[1] - MARGIN] = \
             _colour_bar("Blues", h)
     else:
-        img = scatter_panel(x, p, np.repeat(TAB10[:1], len(x), 0),
+        c0 = colormap_lut("tab10")[:1]
+        img = scatter_panel(x, p, np.repeat(c0, len(x), 0),
                             _autoscale(x), _autoscale(p), filled=True,
                             alpha=0.2, radius=_marker_radius(5))
     draw_frame(img)
@@ -479,7 +482,7 @@ def plot_distribution_comparison(values_subset: np.ndarray,
     xlim = _autoscale(np.concatenate([s for s, _ in curves]))
     ylim = (0.0, max(float(d.max()) for _, d in curves) * (1 + MPL_MARGIN))
     img = _blank()
-    for (support, density), colour in zip(curves, (C0, C1)):
+    for (support, density), colour in zip(curves, (_tab10(0), _tab10(1))):
         _fill_under(img, support, density, xlim, ylim, colour, 0.3)
         rows, cols = _to_px(support, density, xlim, ylim)
         _polyline(img, rows, cols, colour, 2)
@@ -551,7 +554,7 @@ def _histogram_strip(v, lim, length: int, vertical: bool,
     bar = np.where(inside, counts[np.clip(idx, 0, len(counts) - 1)], 0)
     fill = np.arange(depth)[None, :] < np.rint(
         bar / max(counts.max(), 1) * (depth - 20))[:, None]
-    strip[fill] = C0
+    strip[fill] = _tab10(0)
     return strip if vertical else strip.transpose(1, 0, 2)[::-1]
 
 
@@ -583,12 +586,12 @@ def plot_violin_modes(groups: Dict[str, np.ndarray], path: str,
         mask = np.zeros((h, w), bool)
         mask[rows] = (cols[None, :] >= np.rint(c_lo)[:, None]) & \
             (cols[None, :] <= np.rint(c_hi)[:, None]) & inside[:, None]
-        _blend(img, mask, C0, 0.3)
+        _blend(img, mask, _tab10(0), 0.3)
         for yv in (s["min"], s["max"], s["median"]):
             r, c = _to_px([pos - 0.125, pos + 0.125], [yv, yv], xlim, ylim)
-            _polyline(img, r, c, C0, 2)
+            _polyline(img, r, c, _tab10(0), 2)
         r, c = _to_px([pos, pos], [s["min"], s["max"]], xlim, ylim)
-        _polyline(img, r, c, C0, 2)
+        _polyline(img, r, c, _tab10(0), 2)
     draw_frame(img)
     write_rgb_png(path, img)
     return path

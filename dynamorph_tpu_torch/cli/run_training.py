@@ -13,7 +13,17 @@ its labels and relations; z-score; concatenate the relations across dirs
 with cumulative offsets. The VQ-VAE family is reordered
 trajectory-contiguously and trained with the time-matching loss; a ResNet
 samples positive sets from the labels (``train/triplet_data.py``) and
-trains with the triplet miner. One process trains on one card.
+trains with the triplet miner.
+
+A run uses every card the process sees, as the JAX package trains on all
+of a process's devices (dynamorph_tpu/cli/run_training.py:99-108,
+:154-162): with more than one device (``run(devices=)``; by default
+``core.mesh.local_devices()`` when the run is on the card) and no process
+group yet, ``run`` starts one local rank a device
+(``core.mesh.run_local_ranks``: NCCL between cards of their own, gloo
+between ranks that share one or on the CPU), and each rank runs the
+data-parallel path below. One device, ``--device cpu`` without
+``devices=``, and ``--multihost`` run in this process.
 
 ``--multihost`` trains data-parallel, one process a card, every rank
 launched with the same config (the trio of flags, or torchrun's variables;
@@ -22,8 +32,7 @@ and must be a multiple of the world size. The VQ-VAE family then packs
 whole trajectories onto the ranks and runs the trajectory-sharded ring
 loss, as the JAX package chooses ``traj_sharded`` on a multi-device mesh
 (dynamorph_tpu/cli/run_training.py:93-126). Rank 0 writes ``model.pt``.
-The JAX package trains on all of one process's devices at once; the port
-takes one process a card instead.
+Under ``--multihost`` a process uses its rank's card only.
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ import os
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..config import load_config
 from ..core import mesh
@@ -58,6 +68,47 @@ def _start_weights(model, path: Optional[str]) -> None:
     _load_model_weights(model, path)
 
 
+def _triplet_model(tr) -> EncodeProject:
+    return EncodeProject(arch=tr.network, num_inputs=tr.num_inputs,
+                         margin=tr.margin)
+
+
+def _vae_model(tr):
+    return build_model(
+        tr.network,
+        num_inputs=tr.num_inputs,
+        num_hiddens=tr.num_hiddens,
+        num_residual_hiddens=tr.num_residual_hiddens,
+        num_residual_layers=tr.num_residual_layers,
+        num_embeddings=tr.num_embeddings,
+        commitment_cost=tr.commitment_cost,
+        weight_matching=tr.weight_matching,
+        w_a=tr.w_a, w_t=tr.w_t, w_n=tr.w_n, margin=tr.margin,
+        vq_train_precision=tr.vq_train_precision)
+
+
+def _local_rank_main(config, seed: int):
+    """One local rank of ``run``: the host and torch RNG streams seeded
+    from the caller's draw, then the data-parallel run on this rank's
+    device. Returns the history."""
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    return run(config, device=mesh.rank_device())[1]
+
+
+def _run_local_ranks(config, dev, devices):
+    """``run`` over one local rank a device: rank 0's history, and the
+    model rank 0 wrote, loaded onto ``dev``."""
+    tr = config.training
+    seed = int(np.random.randint(0, 2 ** 31 - 1))
+    history = mesh.run_local_ranks(_local_rank_main, (config, seed),
+                                   devices)[0]
+    model = _triplet_model(tr) if "ResNet" in tr.network else _vae_model(tr)
+    _load_model_weights(model, os.path.join(
+        tr.weights_dirs[-1], tr.model_name, MODEL_FILE))
+    return model.to(dev), history
+
+
 def _run_triplet(tr, dataset, labels, model_dir, dev):
     """The ResNet branch (dynamorph_tpu/cli/run_training.py:129-162): a
     seeded train/val split, positive sets of ``n_pos_samples`` patches
@@ -71,8 +122,7 @@ def _run_triplet(tr, dataset, labels, model_dir, dev):
     tri_val = TripletDataset(
         val_labels, lambda i: augment_img(val_set[i]), tr.n_pos_samples)
     batch_size_adj = int(np.floor(tr.batch_size / tr.n_pos_samples))
-    model = EncodeProject(arch=tr.network, num_inputs=tr.num_inputs,
-                          margin=tr.margin)
+    model = _triplet_model(tr)
     _start_weights(model, tr.start_model_path)
     return train_triplet(model, tri_train, tri_val, model_dir,
                          n_epochs=tr.n_epochs, lr=tr.learn_rate,
@@ -82,9 +132,16 @@ def _run_triplet(tr, dataset, labels, model_dir, dev):
                          device=dev)
 
 
-def run(config, device: str = "cuda"):
-    """Train the configured network. Returns (model, history)."""
+def run(config, device: str = "cuda", devices=None):
+    """Train the configured network. Returns (model, history). Over more
+    than one device (``devices``, by default this process's cards when
+    ``device`` is the card) the run trains on one local rank a device and
+    returns rank 0's history and model (module docstring)."""
     dev = resolve_device(device)
+    if not mesh.is_distributed():
+        devices = mesh.fan_out_devices(devices, dev)
+        if len(devices) > 1:
+            return _run_local_ranks(config, dev, devices)
     tr = config.training
     dir_sets = list(zip(tr.supp_dirs, tr.weights_dirs, tr.raw_dirs))
 
@@ -126,17 +183,7 @@ def run(config, device: str = "cuda"):
     if mask is not None:
         mask = mask[np.asarray(order)]
     traj_sharded = mesh.is_distributed() and relation_mat is not None
-    model = build_model(
-        tr.network,
-        num_inputs=tr.num_inputs,
-        num_hiddens=tr.num_hiddens,
-        num_residual_hiddens=tr.num_residual_hiddens,
-        num_residual_layers=tr.num_residual_layers,
-        num_embeddings=tr.num_embeddings,
-        commitment_cost=tr.commitment_cost,
-        weight_matching=tr.weight_matching,
-        w_a=tr.w_a, w_t=tr.w_t, w_n=tr.w_n, margin=tr.margin,
-        vq_train_precision=tr.vq_train_precision)
+    model = _vae_model(tr)
     _start_weights(model, tr.start_model_path)
     # retrain=False lets an interrupted run continue from the output dir's
     # checkpoint (weights, optimizer moments, epoch); retrain=True starts a

@@ -38,7 +38,13 @@ import copy
 import datetime
 import logging
 import os
+import pickle
+import socket
+import subprocess
+import sys
+import tempfile
 import threading
+import time
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -59,18 +65,20 @@ def init_multihost(coordinator: Optional[str] = None,
                    num_processes: Optional[int] = None,
                    process_id: Optional[int] = None,
                    backend: Optional[str] = None,
-                   timeout_s: float = DEFAULT_TIMEOUT_S) -> torch.device:
+                   timeout_s: float = DEFAULT_TIMEOUT_S,
+                   device: Optional[torch.device] = None) -> torch.device:
     """Join the process group; call once per process, before any collective.
 
     ``coordinator`` (``host:port``), ``num_processes`` and ``process_id``
     go together, or none of them is given and torchrun's ``RANK``,
     ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT`` are read. The rank's
-    device is ``cuda:{LOCAL_RANK}`` (``LOCAL_RANK`` defaults to the rank;
-    ranks beyond the visible cards share them, modulo their count), made
-    the current device; without a card it is the CPU. The backend is NCCL
-    where every local rank has a card of its own and ``gloo`` otherwise
-    (the CPU, or ranks that share a card: NCCL refuses two ranks on one
-    GPU). Every collective times out after ``timeout_s``.
+    device is ``device`` when given, else ``cuda:{LOCAL_RANK}``
+    (``LOCAL_RANK`` defaults to the rank; ranks beyond the visible cards
+    share them, modulo their count); a card is made the current device;
+    without a card it is the CPU. The backend is NCCL where every local
+    rank has a card of its own and ``gloo`` otherwise (the CPU, or ranks
+    that share a card: NCCL refuses two ranks on one GPU). Every
+    collective times out after ``timeout_s``.
 
     Returns the rank's device.
     """
@@ -102,11 +110,14 @@ def init_multihost(coordinator: Optional[str] = None,
     local_rank = int(os.environ.get("LOCAL_RANK", rank))
     local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
     n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if n_cards:
+    if device is not None:
+        device = _indexed(device)
+    elif n_cards:
         device = torch.device("cuda", local_rank % n_cards)
-        torch.cuda.set_device(device)
     else:
         device = torch.device("cpu")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
     if backend is None:
         backend = "nccl" if n_cards and local_world <= n_cards else "gloo"
     dist.init_process_group(
@@ -115,6 +126,132 @@ def init_multihost(coordinator: Optional[str] = None,
     _RANK["device"] = device
     log.info("rank %d/%d on %s over %s", rank, world, device, backend)
     return device
+
+
+# one local rank: read the launch spec, join the group, run the target
+_LOCAL_RANK_MAIN = """
+import pickle, sys
+with open(sys.argv[1], "rb") as f:
+    spec = pickle.load(f)
+sys.path[:] = spec["path"]
+from dynamorph_tpu_torch.core import mesh
+mesh._local_rank(spec)
+"""
+
+
+def _local_rank(spec: dict) -> None:
+    """The body of one local rank (``run_local_ranks``): join the group on
+    this rank's device, call the target, pickle its result."""
+    rank = int(os.environ["RANK"])
+    init_multihost(backend=spec["backend"],
+                   device=torch.device(spec["devices"][rank]))
+    try:
+        fn, args = pickle.loads(spec["call"])
+        result = fn(*args)
+        with open(os.path.join(spec["dir"], f"result_{rank}.pkl"), "wb") as f:
+            pickle.dump(result, f)
+    finally:
+        shutdown_multihost()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _read(log_file) -> str:
+    log_file.seek(0)
+    return log_file.read()
+
+
+def local_backend(devices: Sequence[torch.device]) -> str:
+    """NCCL when every device is a card of its own, gloo otherwise (the
+    CPU, or ranks that share a card), as ``init_multihost`` chooses."""
+    devices = [_indexed(d) for d in devices]
+    own_cards = all(d.type == "cuda" for d in devices) and \
+        len(set(devices)) == len(devices)
+    return "nccl" if own_cards else "gloo"
+
+
+# how often run_local_ranks looks at its ranks, and how long the others
+# get to end with their own errors once one has failed
+_POLL_S = 0.2
+_GRACE_S = 5.0
+
+
+def run_local_ranks(fn, args: tuple, devices: Sequence) -> list:
+    """``fn(*args)`` on one process a device, as a process group: rank r
+    runs on ``devices[r]`` (``init_multihost(device=)``), the ranks meet
+    over a loopback TCP address on a free port, and the backend is
+    ``local_backend(devices)``. ``fn`` and ``args`` are pickled (``fn`` by
+    import path); the children start afresh (no fork of a process that
+    may hold the card) with this process's ``sys.path``, and the
+    ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE`` and
+    ``MASTER_*`` variables set in their environment only. A rank's
+    standard output is this process's; its standard error goes to a log,
+    rank 0's copied to this process's standard error at the end.
+
+    Returns every rank's result, in rank order. When a rank fails, the
+    others get ``_GRACE_S`` to end with their own errors and are then
+    stopped, and ``RuntimeError`` names each rank that failed, with the
+    end of its log; a rank stuck in a collective fails by itself after
+    the collectives' timeout (``DEFAULT_TIMEOUT_S``).
+    """
+    devices = [str(_indexed(d)) for d in devices]
+    world = len(devices)
+    with tempfile.TemporaryDirectory(prefix="local_ranks_") as tmp:
+        spec = dict(path=list(sys.path), devices=devices,
+                    backend=local_backend(devices), dir=tmp,
+                    call=pickle.dumps((fn, args)))
+        spec_path = os.path.join(tmp, "spec.pkl")
+        with open(spec_path, "wb") as f:
+            pickle.dump(spec, f)
+        port = _free_port()
+        procs, logs = [], []
+        try:
+            for r in range(world):
+                env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                           LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                           MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+                logs.append(open(os.path.join(tmp, f"rank_{r}.log"), "w+"))
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", _LOCAL_RANK_MAIN, spec_path],
+                    env=env, stderr=logs[-1]))
+            while True:
+                codes = [p.poll() for p in procs]
+                failed = [r for r, c in enumerate(codes) if c not in (None, 0)]
+                if failed:
+                    # the others' own errors first: a peer's failure can
+                    # surface on a waiting rank before it ends itself
+                    end = time.monotonic() + _GRACE_S
+                    while time.monotonic() < end and \
+                            any(p.poll() is None for p in procs):
+                        time.sleep(_POLL_S)
+                    codes = [p.poll() for p in procs]
+                    failed = [r for r, c in enumerate(codes)
+                              if c not in (None, 0)]
+                    raise RuntimeError(
+                        f"local rank(s) {failed} of {world} failed" + "".join(
+                            f"\n--- rank {r} on {devices[r]}, exit code "
+                            f"{codes[r]}:\n{_read(logs[r])[-4000:]}"
+                            for r in failed))
+                if all(c == 0 for c in codes):
+                    break
+                time.sleep(_POLL_S)
+            sys.stderr.write(_read(logs[0]))
+            results = []
+            for r in range(world):
+                with open(os.path.join(tmp, f"result_{r}.pkl"), "rb") as f:
+                    results.append(pickle.load(f))
+            return results
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            for f in logs:
+                f.close()
 
 
 def shutdown_multihost() -> None:

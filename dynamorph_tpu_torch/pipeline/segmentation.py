@@ -75,6 +75,7 @@ def segmentation(raw_folder: str, supp_folder: str, val_folder: str,
                 predict_whole_map(
                     site_path, model,
                     use_channels=np.array(si.channels).astype(int),
+                    batch_size=si.batch_size,
                     n_supp=si.num_pred_rnd, mode=si.inference_mode,
                     time_slices=si.time_slices)
         except Exception:  # per-site failure tolerance (reference :76-86)

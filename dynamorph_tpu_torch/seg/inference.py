@@ -32,8 +32,9 @@ from ..core.mesh import (fan_out_devices, map_chunks, pad_to_multiple,
 from ..io.png import write_png
 from .data import load_input, plot_prediction_prob
 
-# tiles a padding bucket holds before it is rounded to the devices
-# (dynamorph_tpu/seg/inference.py:22)
+# the default tiles a padding bucket holds before it is rounded to the
+# devices (dynamorph_tpu/seg/inference.py:22, :150); the config's
+# segmentation_inference.batch_size sets it
 TILE_BUCKET = 8
 
 
@@ -103,7 +104,8 @@ def predict_whole_map_direct(inputs: np.ndarray, model,
 
 
 def predict_whole_map(file_path, model, use_channels: Sequence[int] = (),
-                      out_file_path: Optional[str] = None, n_supp: int = 5,
+                      out_file_path: Optional[str] = None,
+                      batch_size: int = TILE_BUCKET, n_supp: int = 5,
                       time_slices: int = 1, rng=None, mode: str = "tiled",
                       devices=None):
     """Segment a full 5-D stack (reference data.py:350-482).
@@ -113,6 +115,9 @@ def predict_whole_map(file_path, model, use_channels: Sequence[int] = (),
         model: a ``seg.model.Segment``.
         use_channels: channel indices for prediction (all if empty).
         out_file_path: output path; default <input>_NNProbabilities.npy.
+        batch_size: the tiled mode's padding bucket over several devices
+            (``_predict_tiles``' ``batch_bucket``); one device and the
+            direct mode ignore it.
         n_supp: number of random-offset supplementary passes.
         time_slices: frames a prediction sees; more than 1 needs a
             ``SegmentWithMultipleSlice`` of as many slices, and gives
@@ -181,7 +186,7 @@ def predict_whole_map(file_path, model, use_channels: Sequence[int] = (),
         # base tiling pass
         tiles = np.stack([tile_at(r * x_size, c * y_size)
                           for r in range(rows) for c in range(cols)])
-        outputs = _predict_tiles(model, tiles, devices)
+        outputs = _predict_tiles(model, tiles, devices, batch_size)
         concatenated = -np.ones((n_classes, 1, x_full, y_full))
         ct = 0
         for r in range(rows):
@@ -198,7 +203,7 @@ def predict_whole_map(file_path, model, use_channels: Sequence[int] = (),
             tiles = np.stack([
                 tile_at(x_off + r * x_size, y_off + c * y_size)
                 for r in range(rows - 1) for c in range(cols - 1)])
-            outputs = _predict_tiles(model, tiles, devices)
+            outputs = _predict_tiles(model, tiles, devices, batch_size)
             supp = np.copy(concatenated)
             ct = 0
             for r in range(rows - 1):

@@ -413,8 +413,12 @@ def test_morphology_matches_jax():
         for m in (mask.astype(bool), None):
             assert repr(port_morph.get_intensity_profile(dat, m)) == \
                 repr(jax_morph.get_intensity_profile(dat, m))
-    with pytest.raises(NotImplementedError, match="dynamorph_tpu"):
-        port_morph.extract_features(np.zeros((2, 32, 32)))
+    # KAZE finds nothing on a flat patch: each slice's row is the JAX
+    # function's float64 zero padding (analysis/kaze.py; the detector is
+    # held to cv2's KAZE in test_torch_kaze_oracle.py on the card machine)
+    flat = port_morph.extract_features(np.zeros((2, 32, 32)), device="cpu")
+    assert flat.dtype == np.float64
+    np.testing.assert_array_equal(flat, np.zeros((2, 32 * 64)))
 
 
 def _validation_inputs(root, seg_png):

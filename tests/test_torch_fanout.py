@@ -6,9 +6,10 @@ what one device writes, bit for bit.
   of the JAX package (at least the device count, a multiple of it) and
   the replica cache (one copy a device, made again after the weights
   change).
-- ``seg/inference.py``: the tile bucket (8 rounded to the devices), equal
-  chunks, padding trimmed; the direct mode's frame batch; the whole map,
-  tiled and direct.
+- ``seg/inference.py``: the tile bucket (8 rounded to the devices, or
+  the config's ``segmentation_inference.batch_size`` through
+  ``run_segmentation``), equal chunks, padding trimmed; the direct mode's
+  frame batch; the whole map, tiled and direct.
 - ``EncodeProject.encode_batched``, ``InceptionResNetV2.encode_batched``
   and ``process_vae``'s ResNet branch.
 - The fused stage: frames round-robin over the devices, and
@@ -33,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from dynamorph_tpu_torch.cli import run_segmentation
 from dynamorph_tpu_torch.core import mesh
 from dynamorph_tpu_torch.io.pickles import load_pickle, save_pickle
 from dynamorph_tpu_torch.models.inception_resnet_v2 import InceptionResNetV2
@@ -165,6 +167,61 @@ def test_whole_map_over_devices(unet, mode, k):
     out = inference.predict_whole_map(frames, unet, n_supp=2, mode=mode,
                                       devices=cpus(k))
     np.testing.assert_array_equal(out, ref)
+
+
+def _jax_bucket_pad(n, batch_bucket, n_dev):
+    """dynamorph_tpu/seg/inference.py:33-39: the bucket raised to the
+    device count and rounded down to a multiple of it, then ``n`` padded
+    to a multiple of the bucket."""
+    if n_dev > 1:
+        batch_bucket = max(batch_bucket, n_dev)
+        batch_bucket -= batch_bucket % n_dev
+    return ((n + batch_bucket - 1) // batch_bucket) * batch_bucket
+
+
+@pytest.mark.parametrize("batch_size", [16, None])
+def test_config_batch_size_is_the_tile_bucket(unet, tmp_path, monkeypatch,
+                                              batch_size):
+    """``run_segmentation -m segmentation`` with
+    ``segmentation_inference.batch_size: 16`` over three devices pads each
+    pass as the JAX package does (25 base tiles and 16 offset tiles of a
+    160 x 160 frame: both to 30, bucket 15); without the key the bucket is
+    8 (6 over three devices: 30 and 18). The probabilities are one
+    device's."""
+    stack = np.random.RandomState(8).randint(0, 65536, (1, 2, 1, 160, 160)) \
+        .astype(np.float64)
+    raw = tmp_path / "raw"
+    raw.mkdir()
+    np.save(raw / "B2-Site_0.npy", stack)
+    unet.save(str(tmp_path / "w"))
+    yml = tmp_path / "cfg.yml"
+    yml.write_text(
+        "segmentation_inference:\n"
+        f"  raw_dirs: ['{raw}']\n  supp_dirs: ['{tmp_path}']\n"
+        f"  weights: '{tmp_path / 'w'}'\n  channels: [0, 1]\n"
+        "  window_size: 32\n  num_pred_rnd: 1\n"
+        + (f"  batch_size: {batch_size}\n" if batch_size else ""))
+    padded = []
+    fanned = inference._predict_fanned_out
+
+    def spy(model, batch, devices):
+        padded.append(len(batch))
+        return fanned(model, batch, devices)
+    monkeypatch.setattr(inference, "_predict_fanned_out", spy)
+    monkeypatch.setattr(inference, "fan_out_devices",
+                        lambda devices, home: cpus(3))
+    np.random.seed(9)
+    run_segmentation.main(["-m", "segmentation", "-c", str(yml),
+                           "--device", "cpu"])
+    bucket = batch_size or inference.TILE_BUCKET
+    assert padded == [_jax_bucket_pad(25, bucket, 3),
+                      _jax_bucket_pad(16, bucket, 3)] == \
+        {16: [30, 30], None: [30, 18]}[batch_size]
+    monkeypatch.undo()
+    np.random.seed(9)
+    want = inference.predict_whole_map(stack, unet, n_supp=1)
+    np.testing.assert_array_equal(
+        np.load(raw / "B2-Site_0_NNProbabilities.npy"), want)
 
 
 def test_batch_of_one_rounds_apart(unet):

@@ -17,7 +17,7 @@ PORT = ROOT / "dynamorph_tpu_torch"
 # blocked, and sklearn, cv2, matplotlib, h5py, tensorflow, torchvision,
 # seaborn, pandas and imageio, which the card's machine lacks (matplotlib,
 # cv2 and h5py at least once) or which no port module may import at module
-# level. The blocker matches "dynamorph_tpu" and "dynamorph_tpu.*"
+# level; and loads every colour map there. The blocker matches "dynamorph_tpu" and "dynamorph_tpu.*"
 # exactly: a prefix test would also block dynamorph_tpu_torch.
 _BLOCKED_IMPORT = r"""
 import importlib, importlib.abc, pkgutil, sys
@@ -42,6 +42,10 @@ names = [m.name for m in pkgutil.walk_packages(
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+from dynamorph_tpu_torch.analysis import raster
+# every matplotlib colour map, from the port's own tables
+luts = {n: raster.colormap_lut(n) for n in raster._colormap_tables()}
+assert len(luts) >= 170 and luts["jet_r"].shape == (256, 3)
 import torch.distributed
 assert not torch.distributed.is_initialized()   # no import joins a group
 assert sys.modules["jax"] is None
@@ -75,6 +79,11 @@ _SLICE_MODULES = [
     "dynamorph_tpu_torch.pipeline.fused", "dynamorph_tpu_torch.pipeline.stream",
     "dynamorph_tpu_torch.pipeline.orchestrator",
     "dynamorph_tpu_torch.reduce.scatter",
+    # slice K: KAZE, training over local ranks, the tile bucket
+    "dynamorph_tpu_torch.analysis.kaze",
+    "dynamorph_tpu_torch.analysis.morphology",
+    "dynamorph_tpu_torch.cli.run_training",
+    "dynamorph_tpu_torch.pipeline.segmentation",
 ]
 
 

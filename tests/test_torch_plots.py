@@ -5,14 +5,14 @@ against the JAX package's ``dynamorph_tpu.analysis.plots`` on the CPU.
   name and parameters.
 - The image helpers write the JAX package's pixels: the 16-bit patch PNGs,
   the GIF's frames and durations, the instance blend (cv2's BGR file
-  order), the boxes and the trajectory lines (cv2 5.0's thick rasteriser).
-  The rasteriser is also held against cv2 on random lines with both ends
-  in the image and rectangles anywhere; a line with an end outside the
-  image is the documented case it does not follow (cv2 5.0 clips it
-  first).
+  order), the boxes and the trajectory lines (cv2 5.0's rasteriser), at
+  thickness 1 and filled too.
+  The rasteriser is also held against cv2 on random lines and rectangles,
+  thin, thick and filled, with ends inside and outside the image, and
+  refuses the thicknesses cv2 refuses.
 - The matplotlib figures: the numbers the JAX figures plot (recorded from
   matplotlib's ``Axes`` calls) equal the port's, and the colour tables
-  equal matplotlib's.
+  equal matplotlib's, for every map it registers.
 - The densities: seaborn's and matplotlib's own computations within 1e-10
   relative.
 """
@@ -122,6 +122,41 @@ def test_cell_boxes_pixels_match_jax(tmp_path):
                                             str(tmp_path / "b.png"), **kw))
 
 
+@pytest.mark.parametrize("thickness", [1, 0, -1])
+def test_thin_and_filled_boxes_and_trajectories_match_jax(tmp_path,
+                                                          thickness):
+    """Boxes at thickness 1, 0 and cv2.FILLED across the frame's edges;
+    a trajectory at thickness 1, and refused by both packages at 0 and
+    -1, as cv2.line refuses them."""
+    rng = np.random.RandomState(RNG_SEED + thickness)
+    frame = _frame(rng, 120, 150)
+    centers = [(60, 75), (3, 4), (119, 149)] + \
+        [tuple(c) for c in rng.randint(0, 120, (5, 2))]
+    _same_png(plots.draw_cell_boxes(frame, centers, str(tmp_path / "a.png"),
+                                    half=15, thickness=thickness),
+              jax_plots.draw_cell_boxes(frame, centers,
+                                        str(tmp_path / "b.png"), half=15,
+                                        thickness=thickness))
+    positions = 500 + np.clip(np.cumsum(rng.randint(-9, 10, (12, 2)), 0),
+                              -70, 70)
+    if thickness == 1:
+        _same_png(plots.plot_trajectory_on_frame(
+                      frame, positions, str(tmp_path / "c.png"),
+                      thickness=1),
+                  jax_plots.plot_trajectory_on_frame(
+                      frame, positions, str(tmp_path / "d.png"),
+                      thickness=1))
+        return
+    with pytest.raises(cv2.error):
+        jax_plots.plot_trajectory_on_frame(frame, positions,
+                                           str(tmp_path / "d.png"),
+                                           thickness=thickness)
+    with pytest.raises(ValueError, match="thickness"):
+        plots.plot_trajectory_on_frame(frame, positions,
+                                       str(tmp_path / "c.png"),
+                                       thickness=thickness)
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_trajectory_pixels_match_jax(tmp_path, seed):
     """A wandering trajectory on its crop (the default origin centres its
@@ -160,17 +195,52 @@ def test_thick_lines_and_rectangles_match_cv2():
         np.testing.assert_array_equal(a, b, err_msg=f"rect {p} {q} {th}")
 
 
+@pytest.mark.parametrize("seed", range(3))
+def test_thin_and_clipped_lines_and_filled_rectangles_match_cv2(seed):
+    """cv2.line at thickness 1-9 and cv2.rectangle at -3..3 (thin sides at
+    0 and 1, filled below 0), with ends inside and up to 25 pixels outside
+    the image, bit for bit."""
+    rng = np.random.RandomState(100 + seed)
+    for _ in range(300):
+        h, w = (int(v) for v in rng.randint(1, 50, 2))
+        img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        col = tuple(int(c) for c in rng.randint(0, 256, 3))
+        p = tuple(int(v) for v in rng.randint(-25, max(h, w) + 25, 2))
+        q = tuple(int(v) for v in rng.randint(-25, max(h, w) + 25, 2))
+        th = int(rng.choice([1, 1, 2, 3, 4, 9]))
+        a, b = img.copy(), img.copy()
+        cv2.line(a, p, q, col, th)
+        raster.line(b, p, q, col, th)
+        np.testing.assert_array_equal(a, b, err_msg=f"line {p} {q} {th}")
+        th = int(rng.randint(-3, 4))
+        a, b = img.copy(), img.copy()
+        cv2.rectangle(a, p, q, col, th)
+        raster.rectangle(b, p, q, col, th)
+        np.testing.assert_array_equal(a, b, err_msg=f"rect {p} {q} {th}")
+
+
 def test_thin_lines_are_refused():
-    with pytest.raises(NotImplementedError, match="thick"):
-        raster.line(np.zeros((4, 4, 3), np.uint8), (0, 0), (3, 3), (1, 1, 1),
-                    1)
+    """The thicknesses cv2 refuses: a line's 0, -1 and over MAX_THICKNESS,
+    a rectangle's over MAX_THICKNESS (0 and below draw)."""
+    for th in (0, -1, raster.MAX_THICKNESS + 1):
+        with pytest.raises(cv2.error):
+            cv2.line(np.zeros((4, 4, 3), np.uint8), (0, 0), (3, 3),
+                     (1, 1, 1), th)
+        with pytest.raises(ValueError, match="thickness"):
+            raster.line(np.zeros((4, 4, 3), np.uint8), (0, 0), (3, 3),
+                        (1, 1, 1), th)
+    with pytest.raises(cv2.error):
+        cv2.rectangle(np.zeros((4, 4, 3), np.uint8), (0, 0), (3, 3),
+                      (1, 1, 1), raster.MAX_THICKNESS + 1)
+    with pytest.raises(ValueError, match="thickness"):
+        raster.rectangle(np.zeros((4, 4, 3), np.uint8), (0, 0), (3, 3),
+                         (1, 1, 1), raster.MAX_THICKNESS + 1)
 
 
 # ------------------------------------------------------------ the colours
 
 
-@pytest.mark.parametrize("name", ["tab10", "Paired", "viridis", "Blues",
-                                  "BuPu", "coolwarm"])
+@pytest.mark.parametrize("name", sorted(matplotlib.colormaps))
 def test_colour_tables_are_matplotlibs(name):
     cmap = matplotlib.colormaps[name]
     np.testing.assert_array_equal(
@@ -180,8 +250,8 @@ def test_colour_tables_are_matplotlibs(name):
     norm = matplotlib.colors.Normalize(v.min(), v.max())
     np.testing.assert_array_equal(raster.map_colours(v, name),
                                   cmap(norm(v), bytes=True)[:, :3])
-    with pytest.raises(ValueError, match="not one of"):
-        raster.colormap_lut("jet")
+    with pytest.raises(ValueError, match="not a valid value for cmap"):
+        raster.colormap_lut(name + "_unknown")
 
 
 def test_class_probability_panels_are_viridis(tmp_path):
