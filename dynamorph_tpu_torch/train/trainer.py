@@ -28,7 +28,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from ..core import mesh
+from ..core import mesh, profiling
 from ..core.device import resolve_device, upload
 from ..io.prefetch import Prefetcher
 from . import data as data_utils
@@ -46,14 +46,17 @@ _DEVICE_RESIDENT_BUDGET = 4 * 1024**3
 
 class EarlyStopping:
     """Stop when val loss hasn't improved for `patience` epochs; checkpoint on
-    improvement (reference pipeline/train_utils.py:8-60)."""
+    improvement (reference pipeline/train_utils.py:8-60), each checkpoint a
+    span of ``record``."""
 
     def __init__(self, patience: int = 7, delta: float = 0.0,
-                 path: str = "checkpoint", verbose: bool = False):
+                 path: str = "checkpoint", verbose: bool = False,
+                 record: profiling.Record = profiling.OFF):
         self.patience = patience
         self.delta = delta
         self.path = path
         self.verbose = verbose and mesh.is_main_process()   # rank 0 prints
+        self.record = record
         self.counter = 0
         self.best_score = None
         self.early_stop = False
@@ -80,16 +83,20 @@ class EarlyStopping:
         if self.verbose:
             print(f"Validation loss decreased ({self.val_loss_min:.6f} -> "
                   f"{val_loss:.6f}). Saving model ...")
-        _save_on_main(self.path, model, optimizer, epoch)
+        _save_on_main(self.path, model, optimizer, epoch, self.record)
         self.val_loss_min = val_loss
 
 
-def _save_on_main(path: str, model, optimizer=None, epoch=None) -> None:
+def _save_on_main(path: str, model, optimizer=None, epoch=None,
+                  record: profiling.Record = profiling.OFF) -> None:
     """``save_checkpoint`` by rank 0 alone; in a process group every rank
-    leaves once the file is written."""
-    if mesh.is_main_process():
-        save_checkpoint(path, model, optimizer, epoch)
-    mesh.barrier("checkpoint")
+    leaves once the file is written. ``record`` holds the span
+    ``train.checkpoint`` and counts ``train.checkpoints``."""
+    with record.span("train.checkpoint"):
+        if mesh.is_main_process():
+            save_checkpoint(path, model, optimizer, epoch)
+            record.count("train.checkpoints")
+        mesh.barrier("checkpoint")
 
 
 def _data_parallel_comm():
@@ -107,6 +114,60 @@ def _check_batch_splits(rows: int, world: int, what: str) -> None:
             f"{what} {rows} does not split evenly over the {world} ranks of "
             f"the process group: it must be a multiple of the world size "
             f"{world} (multi-process runs also drop partial batches)")
+
+
+class _PassEdges:
+    """The spans of ``train_vqvae`` whose ends lie at the edges of its
+    passes, not around a block. ``train.epoch`` runs from the issue of the
+    epoch's first training step to the next epoch's, or to the call's end,
+    and then appends its spans and counters to the timing log.
+    ``train.drained`` runs from a pass's loss sync (``_mean_losses``, which
+    leaves the card with no queued work) to the next pass's first step, or
+    to the call's end. Both nest in ``train.call``, and a drained span in
+    its epoch's."""
+
+    def __init__(self, record: profiling.Record):
+        self.record = record
+        self.epoch = self.drained = None
+
+    def _open(self, name: str):
+        span = self.record.span(name)
+        span.__enter__()
+        return span
+
+    def first_step(self, epoch: Optional[int]) -> None:
+        """Before a pass's first step; ``epoch`` for a training pass."""
+        self._end_drained()
+        if epoch is not None:
+            self._end_epoch()
+            self.epoch = (epoch, self.record.snapshot(),
+                          self._open("train.epoch"))
+
+    def synced(self) -> None:
+        """After a pass's loss sync (a pass with no batch has none, and
+        leaves an open drained span open)."""
+        if self.drained is None:
+            self.drained = self._open("train.drained")
+
+    def close(self) -> None:
+        self._end_drained()
+        self._end_epoch()
+
+    def _end_drained(self) -> None:
+        if self.drained is not None:
+            self.drained.__exit__(None, None, None)
+            self.drained = None
+
+    def _end_epoch(self) -> None:
+        if self.epoch is None:
+            return
+        epoch, before, span = self.epoch
+        self.epoch = None
+        span.__exit__(None, None, None)
+        if self.record.log_path:
+            part = self.record.totals(since=before)
+            self.record.log("train.epoch", part["spans"]["train.epoch"][1],
+                            epoch=epoch, **part)
 
 
 def _mean_losses(totals, count: int):
@@ -154,6 +215,29 @@ def train_vqvae(model, dataset: np.ndarray, output_dir: str,
     latents, and each receives its (b, b) relation block only. It needs at
     least one full batch. Without it the dense loss runs on the gathered
     latents and the global (B, B) block.
+
+    Tracing (``core/profiling.py``): a call made while a
+    ``torch.profiler`` records on the calling thread, or while
+    ``DYNAMORPH_TIMING_LOG`` names a JSONL file, records these spans, each
+    a ``record_function`` range of that name in the profiler's trace and a
+    host-clock sum of count and seconds: ``train.call`` (the whole call),
+    ``train.upload`` (the resident upload), ``train.epoch`` (from an
+    epoch's first training step to the next epoch's, or to the call's
+    end), ``train.feed_wait`` (the loop waiting on the prefetch thread, a
+    batch), ``train.load`` (``load_batch`` in the prefetch thread, which a
+    default profiler does not follow), ``train.drained`` (from a pass's
+    loss sync, which leaves the card idle, to the next pass's first step
+    or the call's end: the metrics write, checkpoint, flag gather and the
+    next pass's first batch) and ``train.checkpoint`` (a checkpoint's save
+    and barrier); and these counters: ``train.steps``,
+    ``train.val_steps``, ``train.h2d_bytes`` (what the call copies to the
+    device) and ``train.checkpoints``. The call's record, {"device",
+    "seconds", "spans": {name: [count, seconds]}, "counters"}, is then
+    ``profiling.last_record("train_vqvae")``. With the timing log set, the
+    call appends one line an epoch (``stage`` "train.epoch", ``epoch``,
+    ``seconds``, and the epoch's spans and counters) and one for the call
+    (``stage`` "train_vqvae", and its record). Otherwise nothing is
+    recorded, and a span costs a flag test.
     """
     if val_split_ratio is not None and not 0 < val_split_ratio < 1:
         raise ValueError(f"val_split_ratio {val_split_ratio} not in (0, 1)")
@@ -164,142 +248,167 @@ def train_vqvae(model, dataset: np.ndarray, output_dir: str,
                          "(core.mesh.init_multihost) and a relation_mat")
     if comm is not None:
         _check_batch_splits(batch_size, world, "batch_size")
-    dev = resolve_device(device)
-    os.makedirs(output_dir, exist_ok=True)
-    rng = np.random.RandomState(seed)
-    generator = torch.Generator(device=dev).manual_seed(seed)
+    rec = profiling.Record.of_call()
+    with rec.span("train.call"):
+        dev = resolve_device(device)
+        os.makedirs(output_dir, exist_ok=True)
+        rng = np.random.RandomState(seed)
+        generator = torch.Generator(device=dev).manual_seed(seed)
 
-    model.to(dev)
-    optimizer = torch.optim.Adam(model.parameters(), lr=lr,
-                                 betas=(0.9, 0.999), eps=1e-8)
-    start_epoch = 0
-    if resume and has_checkpoint(output_dir):
-        epoch = restore_checkpoint(output_dir, model, optimizer)
-        start_epoch = -1 if epoch is None else epoch
-        start_epoch += 1
-        if mesh.is_main_process():
-            print(f"Resuming from {output_dir} at epoch {start_epoch}")
-    if comm is not None:
-        mesh.broadcast_state(model, comm)
-    traj_ids = SL.trajectory_ids_from_relations(
-        relation_mat, len(dataset)) if traj_sharded_loss else None
-    train_step = make_train_step(model, optimizer, augment=transform,
-                                 generator=generator, comm=comm)
-    eval_step = make_eval_step(model, generator=generator, comm=comm)
+        model.to(dev)
+        optimizer = torch.optim.Adam(model.parameters(), lr=lr,
+                                     betas=(0.9, 0.999), eps=1e-8)
+        start_epoch = 0
+        if resume and has_checkpoint(output_dir):
+            epoch = restore_checkpoint(output_dir, model, optimizer)
+            start_epoch = -1 if epoch is None else epoch
+            start_epoch += 1
+            if mesh.is_main_process():
+                print(f"Resuming from {output_dir} at epoch {start_epoch}")
+        if comm is not None:
+            mesh.broadcast_state(model, comm)
+        traj_ids = SL.trajectory_ids_from_relations(
+            relation_mat, len(dataset)) if traj_sharded_loss else None
+        train_step = make_train_step(model, optimizer, augment=transform,
+                                     generator=generator, comm=comm)
+        eval_step = make_eval_step(model, generator=generator, comm=comm)
 
-    train_ids, val_ids = data_utils.split_data_ids(
-        len(dataset), val_split_ratio, shuffle_data, rng)
-    if comm is not None:
-        # every rank's shard of every batch is the same size
-        train_ids = train_ids[:len(train_ids) - len(train_ids) % batch_size]
-        val_ids = val_ids[:len(val_ids) - len(val_ids) % batch_size]
-        if traj_sharded_loss and not train_ids:
-            raise ValueError(
-                f"traj_sharded_loss requires at least one full batch: a "
-                f"dataset of {len(dataset)} leaves no training batch of "
-                f"{batch_size} after the {val_split_ratio} val split")
-    n_batches = int(np.ceil(len(train_ids) / batch_size))
-    n_val_batches = int(np.ceil(len(val_ids) / batch_size))
+        train_ids, val_ids = data_utils.split_data_ids(
+            len(dataset), val_split_ratio, shuffle_data, rng)
+        if comm is not None:
+            # every rank's shard of every batch is the same size
+            train_ids = train_ids[:len(train_ids)
+                                  - len(train_ids) % batch_size]
+            val_ids = val_ids[:len(val_ids) - len(val_ids) % batch_size]
+            if traj_sharded_loss and not train_ids:
+                raise ValueError(
+                    f"traj_sharded_loss requires at least one full batch: a "
+                    f"dataset of {len(dataset)} leaves no training batch of "
+                    f"{batch_size} after the {val_split_ratio} val split")
+        n_batches = int(np.ceil(len(train_ids) / batch_size))
+        n_val_batches = int(np.ceil(len(val_ids) / batch_size))
 
-    writer = MetricsWriter(output_dir) if mesh.is_main_process() else None
-    early = EarlyStopping(patience=patience or 10 ** 9, path=output_dir,
-                          verbose=True)
-    history = []
+        writer = MetricsWriter(output_dir) if mesh.is_main_process() \
+            else None
+        early = EarlyStopping(patience=patience or 10 ** 9, path=output_dir,
+                              verbose=True, record=rec)
+        history = []
+        edges = _PassEdges(rec)
 
-    # Device-resident feed (one process): the patches (and the uint8 mask,
-    # transformed once by slice_mask over the whole set, so the two feeds
-    # cannot diverge) upload once, and each batch is an int32 index gather
-    # on the device; only the uint8 relation blocks travel per step. The
-    # gate counts both, so a dataset that barely fits does not run out once
-    # the mask uploads too. In a process group each rank uploads its own
-    # shard of each batch instead.
-    resident_bytes = dataset.nbytes + (
-        0 if mask is None else len(mask) * int(np.prod(mask.shape[2:])))
-    resident = comm is None and resident_bytes <= _DEVICE_RESIDENT_BUDGET
-    if resident:
-        dataset_src = torch.from_numpy(np.ascontiguousarray(dataset)).to(dev)
-        mask_src = None if mask is None else torch.from_numpy(
-            data_utils.slice_mask(mask, np.arange(len(mask)))).to(dev)
+        def to_dev(array):
+            """A host array on the device, counted in ``train.h2d_bytes``."""
+            rec.count("train.h2d_bytes", array.nbytes)
+            return torch.from_numpy(array).to(dev)
 
-    def load_batch(bids):
-        """Relation slice and the batch on the device (a gather when
-        resident, a host copy and upload when streamed). Runs in a prefetch
-        thread so the next batch's feed overlaps the current step."""
-        if traj_sharded_loss:
-            bids = SL.pack_trajectories(bids, traj_ids, world)
-            b = len(bids) // world
-            rel = SL.blockdiag_relations(relation_mat, bids,
-                                         world)[rank * b:(rank + 1) * b]
-        else:
-            rel = data_utils.slice_relation_mat(relation_mat, bids)
-        rel = None if rel is None else torch.from_numpy(rel).to(dev)
+        # Device-resident feed (one process): the patches (and the uint8 mask,
+        # transformed once by slice_mask over the whole set, so the two feeds
+        # cannot diverge) upload once, and each batch is an int32 index gather
+        # on the device; only the uint8 relation blocks travel per step. The
+        # gate counts both, so a dataset that barely fits does not run out once
+        # the mask uploads too. In a process group each rank uploads its own
+        # shard of each batch instead.
+        resident_bytes = dataset.nbytes + (
+            0 if mask is None else len(mask) * int(np.prod(mask.shape[2:])))
+        resident = comm is None and resident_bytes <= _DEVICE_RESIDENT_BUDGET
         if resident:
-            bidx = torch.from_numpy(np.asarray(bids, np.int32)).to(dev)
-            batch = torch.index_select(dataset_src, 0, bidx)
-            bmask = None if mask_src is None else \
-                torch.index_select(mask_src, 0, bidx)
-        else:
-            if comm is not None:        # this rank's rows only
-                b = len(bids) // world
-                bids = np.asarray(bids)[rank * b:(rank + 1) * b]
-            batch = torch.from_numpy(np.ascontiguousarray(dataset[bids])).to(dev)
-            bmask = data_utils.slice_mask(mask, bids)
-            bmask = None if bmask is None else torch.from_numpy(bmask).to(dev)
-        return batch, rel, bmask
+            with rec.span("train.upload"):
+                dataset_src = to_dev(np.ascontiguousarray(dataset))
+                mask_src = None if mask is None else to_dev(
+                    data_utils.slice_mask(mask, np.arange(len(mask))))
 
-    def run_epoch(ids, n_b, training):
-        # loss sums stay on the device; one host sync per epoch
-        totals = None
-        feed = Prefetcher([ids[i * batch_size: (i + 1) * batch_size]
-                           for i in range(n_b)], load_batch, depth=2)
-        step = train_step if training else eval_step
-        for _, (batch, rel, bmask) in feed:
-            losses = step(batch, rel, bmask)
-            totals = losses if totals is None else \
-                {k: totals[k] + v for k, v in losses.items()}
-        return _mean_losses(totals, n_b)
+        def load_batch(bids):
+            """Relation slice and the batch on the device (a gather when
+            resident, a host copy and upload when streamed). Runs in a prefetch
+            thread so the next batch's feed overlaps the current step."""
+            with rec.span("train.load"):
+                if traj_sharded_loss:
+                    bids = SL.pack_trajectories(bids, traj_ids, world)
+                    b = len(bids) // world
+                    rel = SL.blockdiag_relations(
+                        relation_mat, bids, world)[rank * b:(rank + 1) * b]
+                else:
+                    rel = data_utils.slice_relation_mat(relation_mat, bids)
+                rel = None if rel is None else to_dev(rel)
+                if resident:
+                    bidx = to_dev(np.asarray(bids, np.int32))
+                    batch = torch.index_select(dataset_src, 0, bidx)
+                    bmask = None if mask_src is None else \
+                        torch.index_select(mask_src, 0, bidx)
+                else:
+                    if comm is not None:        # this rank's rows only
+                        b = len(bids) // world
+                        bids = np.asarray(bids)[rank * b:(rank + 1) * b]
+                    batch = to_dev(np.ascontiguousarray(dataset[bids]))
+                    bmask = data_utils.slice_mask(mask, bids)
+                    bmask = None if bmask is None else to_dev(bmask)
+                return batch, rel, bmask
 
-    tm_before = getattr(model, "tm_loss_fn", None)
-    if traj_sharded_loss:
-        model.tm_loss_fn = SL.make_traj_sharded_tm_loss(comm)
-    try:
-        for epoch in range(start_epoch, n_epochs):
-            train_losses = run_epoch(train_ids, n_batches, True)
-            val_losses = run_epoch(val_ids, n_val_batches, False)
-            if writer is not None:
-                writer.write("Loss", train_losses, epoch)
-                writer.write("Val loss", val_losses, epoch)
-            history.append({"epoch": epoch, "train": train_losses,
-                            "val": val_losses})
-            if save_every_epoch:
-                # legacy per-epoch checkpoints (reference
-                # vq_vae_supp.py:385)
-                _save_on_main(os.path.join(output_dir,
-                                           f"model_epoch{epoch}"), model)
-            if not val_losses:
-                # no val batch: early-stop on the train loss, which rarely
-                # plateaus, so runs tend to go the full n_epochs
-                if epoch == start_epoch:
-                    warnings.warn(
-                        "validation split has no batch; early stopping will "
-                        "monitor the TRAIN loss (patience may never "
-                        "trigger)")
-                val_losses = train_losses
-            early(val_losses["total_loss"], model, optimizer, epoch)
-            # the losses are the same on every rank; the flags make sure
-            if any(mesh.allgather_flags(early.early_stop)):
-                if mesh.is_main_process():
-                    print("Early stopping")
-                break
-            if shuffle_data and epoch < n_epochs - 1:
-                # reshuffle for the NEXT epoch only, after the early-stop
-                # check
-                rng.shuffle(train_ids)
-    finally:
+        def run_epoch(ids, n_b, training, epoch):
+            # loss sums stay on the device; one host sync per pass
+            totals = None
+            feed = iter(Prefetcher([ids[i * batch_size: (i + 1) * batch_size]
+                                    for i in range(n_b)], load_batch,
+                                   depth=2))
+            step = train_step if training else eval_step
+            steps = "train.steps" if training else "train.val_steps"
+            for i in range(n_b):
+                with rec.span("train.feed_wait"):
+                    _, (batch, rel, bmask) = next(feed)
+                if i == 0:
+                    edges.first_step(epoch if training else None)
+                losses = step(batch, rel, bmask)
+                rec.count(steps)
+                totals = losses if totals is None else \
+                    {k: totals[k] + v for k, v in losses.items()}
+            feed.close()        # the Prefetcher's pool shuts down
+            means = _mean_losses(totals, n_b)
+            edges.synced()
+            return means
+
+        tm_before = getattr(model, "tm_loss_fn", None)
         if traj_sharded_loss:
-            model.tm_loss_fn = tm_before
-    if writer is not None:
-        writer.close()
+            model.tm_loss_fn = SL.make_traj_sharded_tm_loss(comm)
+        try:
+            for epoch in range(start_epoch, n_epochs):
+                train_losses = run_epoch(train_ids, n_batches, True, epoch)
+                val_losses = run_epoch(val_ids, n_val_batches, False, epoch)
+                if writer is not None:
+                    writer.write("Loss", train_losses, epoch)
+                    writer.write("Val loss", val_losses, epoch)
+                history.append({"epoch": epoch, "train": train_losses,
+                                "val": val_losses})
+                if save_every_epoch:
+                    # legacy per-epoch checkpoints (reference
+                    # vq_vae_supp.py:385)
+                    _save_on_main(os.path.join(output_dir,
+                                               f"model_epoch{epoch}"), model,
+                                  record=rec)
+                if not val_losses:
+                    # no val batch: early-stop on the train loss, which
+                    # rarely plateaus, so runs tend to go the full n_epochs
+                    if epoch == start_epoch:
+                        warnings.warn(
+                            "validation split has no batch; early stopping "
+                            "will monitor the TRAIN loss (patience may never "
+                            "trigger)")
+                    val_losses = train_losses
+                early(val_losses["total_loss"], model, optimizer, epoch)
+                # the losses are the same on every rank; the flags make sure
+                if any(mesh.allgather_flags(early.early_stop)):
+                    if mesh.is_main_process():
+                        print("Early stopping")
+                    break
+                if shuffle_data and epoch < n_epochs - 1:
+                    # reshuffle for the NEXT epoch only, after the
+                    # early-stop check
+                    rng.shuffle(train_ids)
+            if writer is not None:
+                writer.close()
+        finally:
+            edges.close()
+            if traj_sharded_loss:
+                model.tm_loss_fn = tm_before
+    rec.keep("train_vqvae", "train.call", device=dev.type)
     return model, history
 
 
