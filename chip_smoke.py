@@ -9,7 +9,8 @@ passed prints the final ``{"ok": true, ...}`` line:
 1. versions, card name and power limit (``nvidia-smi``);
 2. build every CUDA kernel of the port from ``dynamorph_tpu_torch/ops/csrc``
    with ``nvcc`` for sm_90a (one source holds vq_lookup, vq_indices and
-   the lookup's row-wise test oracle);
+   the lookup's row-wise test oracle; ``batch_norm.cu`` the training-mode
+   batch norm's forward and backward);
 3. hold each kernel against its plain PyTorch version on the card:
    vq_lookup at the unit-test shapes, with forced ties, at the ragged ends
    of its tiles (with small integers too, whose distances are exact), and
@@ -25,7 +26,17 @@ passed prints the final ``{"ok": true, ...}`` line:
    (everywhere, where the distances are exact); at the training shape it
    must disagree with a float64 argmin on at most 0.006% of the rows (the
    JAX package's gate for the "high" training precision), on as many rows
-   as the lookup kernel's codes and the row-wise oracle's do;
+   as the lookup kernel's codes and the row-wise oracle's do; the
+   batch-norm kernels (``ops/batch_norm.py``) through ``batch_norm_train``
+   at every training-mode batch-norm shape of the z32 and z16 steps, with
+   and without the folded ReLU: y, the running buffers, dx, dgamma and
+   dbeta against float64 ``F.batch_norm`` (+ ReLU) on each side's own mask,
+   within fp32 rounding and no further than cuDNN's, a channels-last input
+   bit-equal to NCHW, every call a launch and none a fallback; then each
+   shape timed (CUDA events) beside cuDNN's batch norm with and without the
+   ReLU and the bound of the function's bytes. Phases 5, 7 (the timed z32
+   step), 12, 13 and 18 count the batch-norm launches of their own runs
+   and refuse any fallback;
 4. the encode path: ``run_vae -m process`` (the CLI) for VQ_VAE_z16 at full
    width (num_hiddens 16, num_residual_hiddens 32, num_embeddings 64,
    2 x 128 x 128 patches, batch 512) on a synthetic well of 2,304 float64
@@ -572,6 +583,212 @@ def phase_compare_indices(torch, vq, dev):
     return results
 
 
+# --------------------------------------------------------------- phase 3c
+
+# The training-mode batch norms of one step at batch 768, NCHW as both
+# trunks run on the card: ((n, c, h, w), folded ReLU, count a step).
+BN_STEPS = {
+    "z32": [((768, 32, 64, 64), True, 2), ((768, 64, 32, 32), True, 4),
+            ((768, 64, 32, 32), False, 5)],
+    "z16": [((768, 8, 64, 64), True, 1), ((768, 16, 32, 32), True, 1),
+            ((768, 16, 16, 16), True, 1), ((768, 16, 16, 16), False, 3),
+            ((768, 32, 16, 16), True, 2)],
+}
+BN_A_STEP = {"z32": 11, "z16": 8}
+# relative L2 from float64 (each side on its own ReLU mask): fp32 rounding
+# for y, the statistics and the running buffers; the gradients' sums cancel
+BN_RTOL, BN_GRAD_RTOL = 1e-6, 1e-5
+BN_MOMENTUM, BN_EPS = 0.1, 1e-5
+
+
+def bn_counted():
+    """(launches, fallbacks) of the batch-norm op so far."""
+    from dynamorph_tpu_torch.ops.batch_norm import batch_norm_train
+    return batch_norm_train.launches, batch_norm_train.fallbacks
+
+
+def bn_zero():
+    from dynamorph_tpu_torch.ops.batch_norm import batch_norm_train
+    batch_norm_train.launches = batch_norm_train.fallbacks = 0
+
+
+def bn_inputs(torch, shape, dev, seed):
+    """x off centre on some channels (std 1.5), dy, and gamma, beta and
+    running buffers moved off the identity, NCHW fp32 on ``dev``."""
+    n, c, h, w = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    centre = 3.0 * torch.randint(-1, 2, (1, c, 1, 1), generator=g,
+                                 device=dev).float()
+    x = torch.randn(shape, generator=g, device=dev) * 1.5 + centre
+    dy = torch.randn(shape, generator=g, device=dev)
+    gamma = 0.5 + torch.rand(c, generator=g, device=dev)
+    beta = torch.randn(c, generator=g, device=dev) * 0.5
+    rmean = torch.randn(c, generator=g, device=dev)
+    rvar = 0.5 + torch.rand(c, generator=g, device=dev)
+    return x, dy, gamma, beta, rmean, rvar
+
+
+def bn_through_autograd(torch, fn, x, dy, gamma, beta, rmean, rvar):
+    """(y, running mean, running var, dx, dgamma, dbeta) of
+    ``fn(x, gamma, beta, running_mean, running_var)`` under autograd."""
+    xg = x.detach().clone().requires_grad_(True)
+    g = gamma.detach().clone().requires_grad_(True)
+    b = beta.detach().clone().requires_grad_(True)
+    rm, rv = rmean.clone(), rvar.clone()
+    y = fn(xg, g, b, rm, rv)
+    (y * dy).sum().backward()
+    torch.cuda.synchronize()
+    return y.detach(), rm, rv, xg.grad, g.grad, b.grad
+
+
+def phase_compare_batch_norm(torch, dev):
+    """The batch-norm kernels through ``batch_norm_train`` at every
+    training-mode batch norm shape of the z32 and z16 steps, with and
+    without the folded ReLU: y, the running buffers, dx, dgamma and dbeta
+    against float64 ``F.batch_norm`` (+ ReLU) on the card, each fp32 side
+    on its own ReLU mask, and no further from it than cuDNN's
+    (``F.batch_norm`` + ``F.relu`` in fp32); a channels-last input runs the
+    kernels on an NCHW copy, bit-equal; the launches counted, none falling
+    back. Then each shape timed with CUDA events: the kernels, the plain
+    version (cuDNN's batch norm + ``F.relu``), the library's batch norm
+    alone, and the bound of the function's bytes."""
+    phase("3c. batch-norm kernels vs float64 and cuDNN on the card")
+    from torch.nn import functional as F
+
+    from dynamorph_tpu_torch.ops import batch_norm as bn_ops
+
+    def ours_fn(relu):
+        return lambda x, g, b, rm, rv: bn_ops.batch_norm_train(
+            x, g, b, rm, rv, BN_MOMENTUM, BN_EPS, relu)
+
+    def cudnn_fn(relu):
+        def fn(x, g, b, rm, rv):
+            y = F.batch_norm(x, rm, rv, g, b, True, BN_MOMENTUM, BN_EPS)
+            return F.relu(y) if relu else y
+        return fn
+
+    def float64(ins, relu, mask):
+        x, dy, *p = [t.double() for t in ins]
+
+        def fn(xg, g, b, rm, rv):
+            y = F.batch_norm(xg, rm, rv, g, b, True, BN_MOMENTUM, BN_EPS)
+            return y * mask.double() if relu else y
+        return bn_through_autograd(torch, fn, x, dy, *p)
+
+    def rel(a, b):
+        b = b.double()
+        return float(torch.linalg.vector_norm(a.double() - b) /
+                     max(float(torch.linalg.vector_norm(b)), 1e-300))
+
+    names = ("y", "running_mean", "running_var", "dx", "dgamma", "dbeta")
+    limits = (BN_RTOL,) * 3 + (BN_GRAD_RTOL,) * 3
+    cases = sorted({(s, r) for steps in BN_STEPS.values()
+                    for s, r, _ in steps})
+    bn_zero()
+    calls, errs = 0, {}
+    for i, (shape, relu) in enumerate(cases):
+        ins = bn_inputs(torch, shape, dev, SEED + i)
+        ours = bn_through_autograd(torch, ours_fn(relu), *ins)
+        cud = bn_through_autograd(torch, cudnn_fn(relu), *ins)
+        calls += 1
+        ref = float64(ins, relu, ours[0] > 0)
+        ref_c = float64(ins, relu, cud[0] > 0) if relu else ref
+        e = {k: rel(a, b) for k, a, b in zip(names, ours, ref)}
+        ec = {k: rel(a, b) for k, a, b in zip(names, cud, ref_c)}
+        flips = int(((ours[0] > 0) != (cud[0] > 0)).sum()) if relu else 0
+        key = f"{'x'.join(map(str, shape))}{'_relu' if relu else ''}"
+        errs[key] = dict(kernel=e, cudnn=ec, mask_flips=flips,
+                         max_abs_y=float((ours[0] - ref[0]).abs().max()))
+        log(f"{key}: kernel vs float64 " + ", ".join(
+            f"{k} {e[k]:.3e}" for k in names) + "; cuDNN " + ", ".join(
+            f"{k} {ec[k]:.3e}" for k in names)
+            + f"; ReLU masks differ on {flips} elements")
+        for k, limit in zip(names, limits):
+            if not e[k] <= limit:
+                raise AssertionError(f"batch norm {key}: {k} {e[k]:.3e} "
+                                     f"from float64, over {limit}")
+            # a floor of a few fp32 ulps where cuDNN's own error is lower
+            if not e[k] <= max(ec[k], 2e-7):
+                raise AssertionError(f"batch norm {key}: {k} {e[k]:.3e} "
+                                     f"from float64, cuDNN {ec[k]:.3e}")
+        del ins, ours, cud, ref, ref_c
+        torch.cuda.empty_cache()
+
+    # a channels-last input: the kernels on an NCHW copy, the same bits
+    ins = bn_inputs(torch, BN_STEPS["z16"][0][0], dev, SEED)
+    nchw = bn_through_autograd(torch, ours_fn(True), *ins)
+    last = bn_through_autograd(
+        torch, ours_fn(True),
+        ins[0].contiguous(memory_format=torch.channels_last), *ins[1:])
+    calls += 2
+    if not all(torch.equal(a, b) for a, b in zip(nchw, last)):
+        raise AssertionError("a channels-last input does not give the NCHW "
+                             "input's bits")
+    launches, fallbacks = bn_counted()
+    log(f"launches {launches} (want {calls}), fallbacks {fallbacks} "
+        f"(want 0); a channels-last input bit-equal to NCHW")
+    if (launches, fallbacks) != (calls, 0):
+        raise AssertionError("batch_norm_train did not take the kernels on "
+                             "every fp32 call on the card")
+    del ins, nchw, last
+
+    timed = {}
+    for i, (shape, relu) in enumerate(cases):
+        x, dy, g, b, rm, rv = bn_inputs(torch, shape, dev, SEED + i)
+        blocks = bn_ops._blocks(x)
+        y, mean, invstd = bn_ops._forward_cuda(x, g, b, rm, rv, BN_MOMENTUM,
+                                               BN_EPS, relu, blocks)
+        fwd = time_cuda(torch, lambda: bn_ops._forward_cuda(
+            x, g, b, rm, rv, BN_MOMENTUM, BN_EPS, relu, blocks), 20)
+        bwd = time_cuda(torch, lambda: bn_ops._backward_cuda(
+            x, dy, mean, invstd, g, b, relu, blocks), 20)
+        xg = x.clone().requires_grad_(True)
+        gg, bg = g.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        out = {}
+        for what, fn in (("plain", cudnn_fn(relu)), ("library",
+                                                    cudnn_fn(False))):
+            out[f"{what}_fwd"] = time_cuda(
+                torch, lambda: fn(xg, gg, bg, rm, rv).detach(), 20)
+            yy = fn(xg, gg, bg, rm, rv)
+            out[f"{what}_bwd"] = time_cuda(torch, lambda: torch.autograd.grad(
+                yy, [xg, gg, bg], dy, retain_graph=True), 20)
+            del yy
+        s = x.numel() * 4
+        key = (shape, relu)
+        timed[key] = dict(
+            fwd_ms=fwd, bwd_ms=bwd, ms=fwd + bwd,
+            plain_ms=out["plain_fwd"] + out["plain_bwd"],
+            library_ms=out["library_fwd"] + out["library_bwd"],
+            # the function's least bytes: x read and y written forward;
+            # x and dy read, dx written backward
+            bound_ms=5 * s / HBM_BYTES_PER_S * 1e3,
+            # the two-pass algorithm's: x twice and y; x and dy twice, dx
+            two_pass_bound_ms=8 * s / HBM_BYTES_PER_S * 1e3, blocks=blocks)
+        log(f"{'x'.join(map(str, shape))}{' relu' if relu else ''}: kernels "
+            f"{fwd:.4f} + {bwd:.4f} ms ({blocks} blocks), plain (cuDNN + "
+            f"ReLU) {out['plain_fwd']:.4f} + {out['plain_bwd']:.4f}, library "
+            f"(cuDNN) {out['library_fwd']:.4f} + {out['library_bwd']:.4f}; "
+            f"bound {timed[key]['bound_ms']:.4f} (5S), two-pass "
+            f"{timed[key]['two_pass_bound_ms']:.4f} (8S)")
+        del x, dy, y, xg
+        torch.cuda.empty_cache()
+    steps = {}
+    for name, rows in BN_STEPS.items():
+        tot = {k: sum(n * timed[(s, r)][k] for s, r, n in rows)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                         "two_pass_bound_ms")}
+        tot["bound_share"] = tot["bound_ms"] / tot["ms"]
+        tot["two_pass_bound_share"] = tot["two_pass_bound_ms"] / tot["ms"]
+        steps[name] = tot
+        log(f"{name} step ({BN_A_STEP[name]} batch norms): kernels "
+            f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f}, library "
+            f"{tot['library_ms']:.4f}; bound {tot['bound_ms']:.4f} ms (share "
+            f"{tot['bound_share']:.4f}), two-pass bound "
+            f"{tot['two_pass_bound_ms']:.4f} (share "
+            f"{tot['two_pass_bound_share']:.4f})")
+    return dict(errs=errs, launches=launches, timed=timed, steps=steps)
+
+
 # ---------------------------------------------------------------- phase 4
 
 
@@ -775,15 +992,22 @@ def phase_training_path(torch, vq, root, dev):
 
     vq.vq_indices.launches = 0
     vq.vq_lookup.launches = 0
+    bn_zero()
     t0 = time.perf_counter()
     model, hist = run_training.main(["-c", cfg, "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     li, ll = vq.vq_indices.launches, vq.vq_lookup.launches
+    bn = bn_counted()
+    want_bn = BN_A_STEP["z32"] * want_train
     log(f"run_training: {wall:.3f} s wall for {TRAIN_EPOCHS} epochs (load, "
         f"z-score, reorder, train, validate, checkpoint); vq_indices "
         f"launches {li} (want {want_train}), vq_lookup launches {ll} (want "
-        f"{want_val})")
+        f"{want_val}); batch_norm launches {bn[0]} (want {want_bn}), "
+        f"fallbacks {bn[1]} (want 0)")
+    if bn != (want_bn, 0):
+        raise AssertionError("the training path did not run every "
+                             "training-mode batch norm on the kernels")
     for h in hist:
         log(f"epoch {h['epoch']}: train "
             + json.dumps({k: round(v, 6) for k, v in h["train"].items()})
@@ -818,7 +1042,7 @@ def phase_training_path(torch, vq, root, dev):
         f"patches on the card: {len(torch.unique(idx))} codes used; "
         f"metrics.jsonl {n_lines} lines")
     return dict(launches_indices=li, launches_lookup=ll, wall=wall,
-                hist=hist)
+                hist=hist, launches_batch_norm=bn[0])
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1229,15 +1453,22 @@ def phase_train_timings(torch, vq, indices, dev, ptxas):
         return step(x, rel, None)
 
     torch.cuda.reset_peak_memory_stats()
+    bn_zero()
     step_ms = time_cuda(torch, one_step, 10)
+    bn = bn_counted()
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"z32 train step, batch {TRAIN_BATCH}, device-resident batch, "
         f"augmentation and relation block on: {step_ms:.6f} ms, "
         f"{TRAIN_BATCH / step_ms * 1e3:.1f} patches/s; peak device memory "
-        f"{peak:.3f} GB")
+        f"{peak:.3f} GB; batch_norm launches {bn[0]} over 13 steps, "
+        f"fallbacks {bn[1]}")
+    if bn != (13 * BN_A_STEP["z32"], 0):     # 3 warm-up steps and 10 timed
+        raise AssertionError("the timed z32 step did not run every batch "
+                             "norm on the kernels")
     prof = profile_steps(torch, one_step, 3, step_ms)
     return dict(indices=timed, gather_ms=gather_ms, index_add_ms=index_add_ms,
-                step_ms=step_ms, peak_gb=peak, profile=prof)
+                step_ms=step_ms, peak_gb=peak, profile=prof,
+                launches_batch_norm=bn[0] // 13)
 
 
 def phase_encode_z32(torch, dev):
@@ -3158,11 +3389,26 @@ def kink_branches(torch, masks, replay):
     hinge, the time-matching loss's distance and hinge; its active mask
     ``x >= min``, where its gradient is 1). A replayed active hinge passes
     ``x`` with gradient 1, at least 2e-16, so that the miner counts it as
-    the fp32 step did. The patches leave the models' arithmetic as it is."""
+    the fp32 step did. A ReLU folded into the port's batch-norm kernel
+    (``ops.batch_norm``, fp32 on the card) records its mask ``y > 0`` in
+    the same order; the replaying step, in float64, runs ``F.relu`` there.
+    The patches leave the models' arithmetic as it is."""
+    from dynamorph_tpu_torch.ops import batch_norm as bn_ops
+
     F = torch.nn.functional
     relu, relu_, max_pool = F.relu, torch.Tensor.relu_, F.max_pool2d
     tmax, tclamp = torch.max, torch.clamp
+    bn_apply = bn_ops._BatchNormTrain.apply
     queue = iter(masks)
+
+    def folded(*args):
+        if replay:
+            raise RuntimeError("a replayed step must run F.relu: the "
+                               "batch-norm kernel cannot take a mask")
+        y = bn_apply(*args)
+        if args[-1]:     # relu
+            masks.append((y > 0).cpu())
+        return y
 
     def branch(x, inplace=False):
         if replay:
@@ -3212,11 +3458,13 @@ def kink_branches(torch, masks, replay):
 
     F.relu, torch.Tensor.relu_, F.max_pool2d = branch, hinge, pool
     torch.max, torch.clamp = max_, clamp
+    bn_ops._BatchNormTrain.apply = folded
     try:
         yield
     finally:
         F.relu, torch.Tensor.relu_, F.max_pool2d = relu, relu_, max_pool
         torch.max, torch.clamp = tmax, tclamp
+        del bn_ops._BatchNormTrain.apply    # torch.autograd.Function's
 
 
 def e1_step_grads(torch, model, network, x, noise, labels, fp32=True,
@@ -3488,12 +3736,20 @@ def phase_other_encoders(torch, vq, root, dev, card, well):
             else TRAIN_BATCH
         steps = -(-n_train // per_step) + -(-n_val // per_step)
         vq.vq_lookup.launches = vq.vq_indices.launches = 0
+        bn_zero()
         t0 = time.perf_counter()
         model, hist = run_training.main(["-c", cfg, "--device", dev.type])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         r["launches"] = {"vq_lookup": vq.vq_lookup.launches,
                          "vq_indices": vq.vq_indices.launches}
+        # the VAE family's trunk is z16's (8 batch norms a training pass);
+        # the ResNets keep torch's own batch norm
+        r["batch_norm"] = bn_counted()
+        if r["batch_norm"][1] or (r["batch_norm"][0] > 0) != (
+                network in VAE_FAMILY):
+            raise AssertionError(f"{network}: batch_norm launches and "
+                                 f"fallbacks {r['batch_norm']}")
         if len(hist) != 1 or not all(np.isfinite(v) for split in
                                      ("train", "val")
                                      for v in hist[0][split].values()):
@@ -3513,7 +3769,7 @@ def phase_other_encoders(torch, vq, root, dev, card, well):
             + " val "
             + json.dumps({k: round(v, 6) for k, v in hist[0]["val"].items()})
             + f"; model.pt loads strict; vq kernel launches {r['launches']}"
-            + tag)
+            + f"; batch_norm launches and fallbacks {r['batch_norm']}" + tag)
 
         # (a): run_vae -m process from that model.pt, on phase 4's well
         pcfg = os.path.join(root, f"e1_process_{network}.yml")
@@ -3816,6 +4072,7 @@ def phase_adversarial(torch, vq, root, dev, tag):
     model = e1_model("AAE")
     out = os.path.join(root, "adv_out")
     steps = -(-len(dataset) // TRAIN_BATCH)
+    bn_zero()
     t0 = time.perf_counter()
     _, hist = train_adversarial(model, dataset, out,
                                 relation_mat=relation_mat, n_epochs=1,
@@ -3823,6 +4080,10 @@ def phase_adversarial(torch, vq, root, dev, tag):
                                 seed=SEED, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    bn = bn_counted()
+    if bn[0] < 1 or bn[1]:
+        raise AssertionError(f"train_adversarial: batch_norm launches and "
+                             f"fallbacks {bn}")
     keys = {"epoch", "recon_loss", "time_matching_loss", "total_loss",
             "perplexity", "generator_loss", "descriminator_loss", "score"}
     if len(hist) != 1 or set(hist[0]) != keys or \
@@ -3836,6 +4097,7 @@ def phase_adversarial(torch, vq, root, dev, tag):
         f"{len(dataset)} patches ({steps} steps of 3 updates at batch "
         f"{TRAIN_BATCH}, host batching included); "
         + json.dumps({k: round(v, 6) for k, v in hist[0].items()})
+        + f"; batch_norm launches {bn[0]}, fallbacks {bn[1]}"
         + f"; model_epoch0/model.pt loads strict{tag}")
 
     # process on that checkpoint (loaded strict by run_vae), phase 4's well
@@ -3883,6 +4145,7 @@ def phase_adversarial(torch, vq, root, dev, tag):
     data = load_pickle(os.path.join(raw, "im_static_patches.pkl"))[:, :, 0]
     checks = adv_step_vs_cpu(torch, fresh, data, dev, tag)
     return dict(wall=wall, hist=hist[0], step_ms=step_ms, peak_gb=peak,
+                launches_batch_norm=bn[0],
                 idle=None if prof is None else
                 max(0.0, 1 - prof["busy_ms"] / step_ms),
                 checks=checks)
@@ -6741,15 +7004,18 @@ def local_rank_counted(config, seed):
 
     torch.set_num_threads(MR_THREADS)
     vq.vq_indices.launches = vq.vq_lookup.launches = 0
+    bn_zero()
     t0 = time.perf_counter()
     with deterministic_cudnn(torch):
         hist = run_training._local_rank_main(config, seed)
     torch.cuda.synchronize()
+    bn = bn_counted()
     out = dict(rank=mesh.process_index(), world=mesh.process_count(),
                backend=dist.get_backend(), device=str(mesh.rank_device()),
                wall=time.perf_counter() - t0,
                launches=dict(vq_indices=vq.vq_indices.launches,
-                             vq_lookup=vq.vq_lookup.launches))
+                             vq_lookup=vq.vq_lookup.launches,
+                             batch_norm=bn[0], batch_norm_fallbacks=bn[1]))
     out["timing"] = mr_timed_steps(torch, mesh.rank_device())
     with open(os.path.join(config.training.weights_dirs[-1],
                            LR_STATS.format(out["rank"])), "w") as f:
@@ -6803,14 +7069,19 @@ def ph18_training(torch, vq, root, dev, multirank, train_run, tag):
     for o in ranks:
         log(f"  local rank {o['rank']}/{o['world']} on {o['device']} over "
             f"{o['backend']}: vq_indices {o['launches']['vq_indices']} (want "
-            f"{steps}), vq_lookup {o['launches']['vq_lookup']} (want {val}); "
+            f"{steps}), vq_lookup {o['launches']['vq_lookup']} (want {val}), "
+            f"batch_norm {o['launches']['batch_norm']} and its fallbacks "
+            f"{o['launches']['batch_norm_fallbacks']} (want 0: the ranks "
+            f"take the cross-rank statistics); "
             f"step at batch {TRAIN_BATCH} ({o['timing']['rows']} rows a "
             f"rank) {o['timing']['step_ms']:.3f} ms, collectives share "
             f"{o['timing']['collective_share']:.4f}{tag}")
-        if o["launches"] != dict(vq_indices=steps, vq_lookup=val):
+        if o["launches"] != dict(vq_indices=steps, vq_lookup=val,
+                                 batch_norm=0, batch_norm_fallbacks=0):
             raise AssertionError("a local rank did not launch vq_indices "
                                  "once a step and vq_lookup once a "
-                                 "validation step")
+                                 "validation step, or ran a batch norm on "
+                                 "its own rows")
     if here != (0, 0) or ranks[0]["backend"] != "gloo":
         raise AssertionError(f"the run trained in this process ({here}) or "
                              f"over {ranks[0]['backend']}")
@@ -7095,9 +7366,17 @@ def main() -> int:
             log(f"  {line.strip()}")
 
     ptxas = kernel_ptxas(info["log"])
+    info = _build.build("batch_norm")
+    log(f"batch_norm.cu (batch_norm{{,_relu}}_{{fwd,bwd}}_kernel<1, 4>): "
+        f"{info['path']} ({info['seconds']:.2f} s)")
+    for line in info["log"].splitlines():
+        if "registers" in line or "spill" in line or "error" in line \
+                or "Compiling entry" in line:
+            log(f"  {line.strip()}")
     with fp32_strict():
         compared = phase_compare(torch, vq, dev)
         indices = phase_compare_indices(torch, vq, dev)
+    batch_norm = phase_compare_batch_norm(torch, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         main_run = phase_main_path(torch, vq, root)
         train_run = phase_training_path(torch, vq, root, dev)
@@ -7214,6 +7493,30 @@ def main() -> int:
             l["vq_indices"] for l in slice_k["training"]["launches"]],
         "flips_vs_plain": {k: indices[k]["flips"] for k in indices},
         "flip_rate_vs_f64": {k: indices[k]["f64_rate"] for k in indices},
+    }, {
+        "name": "batch_norm",
+        "route": "cuda",
+        "source": "dynamorph_tpu_torch/ops/csrc/batch_norm.cu",
+        "replaces": "cuDNN's bn_fw_tr_1C11 / bn_bw_1C11 and the ReLU after "
+                    "them (no TPU kernel: dynamorph_tpu/nn/functional.py)",
+        "launches": batch_norm["launches"],
+        # relative L2 from float64, the worst output of the worst shape
+        "max_rel_err": max(v for e in batch_norm["errs"].values()
+                           for v in e["kernel"].values()),
+        "max_abs_err": max(e["max_abs_y"]
+                           for e in batch_norm["errs"].values()),
+        "z32_step": batch_norm["steps"]["z32"],
+        "z16_step": batch_norm["steps"]["z16"],
+        "per_shape": {
+            f"{'x'.join(map(str, s))}{'_relu' if r else ''}": v
+            for (s, r), v in batch_norm["timed"].items()},
+        "launches_training_path": train_run["launches_batch_norm"],
+        "launches_timed_z32_step": train_timed["launches_batch_norm"],
+        "launches_other_encoders_path": {
+            n: r["batch_norm"][0] for n, r in other.items()},
+        "launches_adversarial_path": after["adv"]["launches_batch_norm"],
+        "launches_local_ranks_per_rank": [
+            l["batch_norm"] for l in slice_k["training"]["launches"]],
     }]
     phase("summary")
     log(f"training path: {train_run['wall']:.3f} s for {TRAIN_EPOCHS} "

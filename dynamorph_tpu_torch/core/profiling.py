@@ -105,7 +105,7 @@ class Record:
     def totals(self, since=None) -> Dict:
         """{"spans": {name: [count, seconds]}, "counters": {name: n}}, of
         the whole record or of what was added after the ``since``
-        snapshot."""
+        snapshot; a counter counted since then is there even at 0."""
         spans, counters = self.snapshot()
         s0, c0 = since or ({}, {})
         return {
@@ -114,7 +114,7 @@ class Record:
                       for k, (c, ns) in spans.items()
                       if c != s0.get(k, (0, 0))[0]},
             "counters": {k: n - c0.get(k, 0) for k, n in counters.items()
-                         if n != c0.get(k, 0)}}
+                         if k not in c0 or n != c0[k]}}
 
     def log(self, stage: str, seconds: float, **fields) -> None:
         """Appends {stage, seconds, time, **fields} to the timing log, if

@@ -12,6 +12,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..core.mesh import all_gather_cat
+from ..nn.batchnorm import BatchNorm2d
 
 
 @contextlib.contextmanager
@@ -37,6 +38,9 @@ class ResidualStack(nn.Module):
     Each layer is ``x = x + layer(x)`` with layer = ReLU -> Conv3x3(nh->nrh)
     -> BN -> ReLU -> Conv1x1(nrh->nh) -> BN, at the reference's Sequential
     indices 0..5, so the state_dict names are ``layers.{i}.{1,2,4,5}.*``.
+    The ReLU at index 3 is folded into the batch norm before it
+    (``nn.batchnorm.BatchNorm2d(relu=True)``) and its slot is an
+    ``nn.Identity``.
     """
 
     def __init__(self, num_hiddens: int, num_residual_hiddens: int,
@@ -46,10 +50,10 @@ class ResidualStack(nn.Module):
             nn.Sequential(
                 nn.ReLU(),
                 nn.Conv2d(num_hiddens, num_residual_hiddens, 3, 1, 1),
-                nn.BatchNorm2d(num_residual_hiddens),
-                nn.ReLU(),
+                BatchNorm2d(num_residual_hiddens, relu=True),
+                nn.Identity(),
                 nn.Conv2d(num_residual_hiddens, num_hiddens, 1, 1, 0),
-                nn.BatchNorm2d(num_hiddens),
+                BatchNorm2d(num_hiddens),
             ) for _ in range(num_residual_layers)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -76,6 +80,12 @@ def fused_preconv_stride_conv(conv0: nn.Conv2d, conv1: nn.Conv2d,
     w0 = conv0.weight[:, :, 0, 0].double()            # (Cmid, Cin)
     w1 = conv1.weight.double()                         # (Cout, Cmid, k, k)
     w01 = torch.einsum("ockl,ci->oikl", w1, w0).to(x.dtype)
+    if x.is_cuda:
+        # einsum lays W01 out channels-last, and the convolutions after it
+        # would carry that layout on; the card runs the trunk NCHW, the
+        # layout of its batch-norm kernels (``ops/batch_norm.py``). The CPU
+        # keeps einsum's layout, whose rounding its results have.
+        w01 = w01.contiguous()
     stride, padding = conv1.stride, conv1.padding
     y = F.conv2d(x, w01, conv1.bias, stride, padding)
     if conv0.bias is not None:
@@ -93,21 +103,23 @@ def z16_encoder(ni: int, nh: int, nrh: int, nrl: int,
     (HiddenStateExtractor/vae.py:273-286, shared by VQ_VAE_z16, VAE, IWAE
     and AAE, :523-537): 1x1 lift, three 4x4 stride-2 convs and a 3x3 conv,
     each but the first followed by batch norm (ReLU between), then the
-    residual stack at ``enc.12``. ``extra_out`` adds the VAE's 1x1
-    widening conv at ``enc.13`` (mean and log-std halves)."""
+    residual stack at ``enc.12``. Each ReLU is folded into the batch norm
+    before it (``BatchNorm2d(relu=True)``), its slot an ``nn.Identity``.
+    ``extra_out`` adds the VAE's 1x1 widening conv at ``enc.13`` (mean and
+    log-std halves)."""
     layers = [
         nn.Conv2d(ni, nh // 2, 1),                  # 0
         nn.Conv2d(nh // 2, nh // 2, 4, 2, 1),       # 1
-        nn.BatchNorm2d(nh // 2),                    # 2
-        nn.ReLU(),                                  # 3
+        BatchNorm2d(nh // 2, relu=True),            # 2
+        nn.Identity(),                              # 3
         nn.Conv2d(nh // 2, nh, 4, 2, 1),            # 4
-        nn.BatchNorm2d(nh),                         # 5
-        nn.ReLU(),                                  # 6
+        BatchNorm2d(nh, relu=True),                 # 5
+        nn.Identity(),                              # 6
         nn.Conv2d(nh, nh, 4, 2, 1),                 # 7
-        nn.BatchNorm2d(nh),                         # 8
-        nn.ReLU(),                                  # 9
+        BatchNorm2d(nh, relu=True),                 # 8
+        nn.Identity(),                              # 9
         nn.Conv2d(nh, nh, 3, 1, 1),                 # 10
-        nn.BatchNorm2d(nh),                         # 11
+        BatchNorm2d(nh),                            # 11
         ResidualStack(nh, nrh, nrl),                # 12
     ]
     if extra_out:

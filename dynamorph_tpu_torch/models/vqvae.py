@@ -37,6 +37,7 @@ from torch import nn
 
 from ..core.device import fp32_strict
 from ..core.mesh import all_reduce_sum, global_mean
+from ..nn.batchnorm import BatchNorm2d
 from ..ops.vq import (PRECISIONS, gather_codes, perplexity_from_counts,
                       vq_codebook_counts, vq_indices, vq_lookup)
 from . import common
@@ -191,7 +192,9 @@ class VQVAEz32(VQVAEBase):
 
     Reference spec: HiddenStateExtractor/vae.py:348-474 (enc :401-407,
     dec :409-414). Recon/commitment unweighted (vae.py:440), and the
-    time-matching loss uses z_after (post-VQ, vae.py:444).
+    time-matching loss uses z_after (post-VQ, vae.py:444). The ReLUs at
+    ``enc.2`` and ``dec.3`` are folded into the batch norms before them
+    (``BatchNorm2d(relu=True)``); their slots are ``nn.Identity``.
     """
 
     _recon_weighted = False
@@ -202,10 +205,10 @@ class VQVAEz32(VQVAEBase):
         nh, ni = num_hiddens, num_inputs
         self.enc = nn.Sequential(
             nn.Conv2d(ni, nh // 2, 4, 2, 1),            # 0
-            nn.BatchNorm2d(nh // 2),                    # 1
-            nn.ReLU(),                                  # 2
+            BatchNorm2d(nh // 2, relu=True),            # 1
+            nn.Identity(),                              # 2
             nn.Conv2d(nh // 2, nh, 4, 2, 1),            # 3
-            nn.BatchNorm2d(nh),                         # 4
+            BatchNorm2d(nh),                            # 4
             common.ResidualStack(nh, self.num_residual_hiddens,
                                  self.num_residual_layers),  # 5
         )
@@ -213,8 +216,8 @@ class VQVAEz32(VQVAEBase):
             common.ResidualStack(nh, self.num_residual_hiddens,
                                  self.num_residual_layers),  # 0
             nn.ConvTranspose2d(nh, nh // 2, 4, 2, 1),   # 1
-            nn.BatchNorm2d(nh // 2),                    # 2
-            nn.ReLU(),                                  # 3
+            BatchNorm2d(nh // 2, relu=True),            # 2
+            nn.Identity(),                              # 3
             nn.ConvTranspose2d(nh // 2, ni, 4, 2, 1),   # 4
         )
         self.eval()

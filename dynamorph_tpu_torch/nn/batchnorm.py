@@ -14,6 +14,13 @@ all-reduces. The running buffers are updated from the global statistics
 ``torch.nn.SyncBatchNorm`` does not serve: it refuses CPU tensors
 (torch 2.13's forward raises unless the input is on a GPU), where the tests
 run, and its statistics are one-pass.
+
+``BatchNorm2d`` is ``torch.nn.BatchNorm2d`` with the ReLU that follows it
+folded in (``relu=True``) and its training-mode pass through
+``ops.batch_norm.batch_norm_train``: the hand-written kernels on the card,
+``F.batch_norm`` (+ ``F.relu``) elsewhere. Under the cross-rank batch norm
+its ReLU follows the global statistics, and neither of the op's counters
+moves.
 """
 from __future__ import annotations
 
@@ -23,8 +30,42 @@ from typing import Iterator
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ..core.mesh import all_reduce_sum, current_comm
+from ..ops import batch_norm as bn_ops
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (same parameters, buffers and ``state_dict``)
+    that applies ``F.relu`` to its output where ``relu``, so a ReLU that
+    follows it directly is folded in (its slot becomes ``nn.Identity``).
+    Training mode runs ``ops.batch_norm.batch_norm_train``, counted there;
+    eval mode runs ``nn.BatchNorm2d``'s own forward. It is affine and
+    keeps running statistics: the kernels take both."""
+
+    def __init__(self, num_features: int, relu: bool = False, **kw):
+        super().__init__(num_features, **kw)
+        if not (self.affine and self.track_running_stats):
+            raise ValueError("BatchNorm2d takes affine=True and "
+                             "track_running_stats=True")
+        self.relu = relu
+
+    def extra_repr(self) -> str:
+        return super().extra_repr() + (", relu=True" if self.relu else "")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            y = super().forward(x)
+            return F.relu(y) if self.relu else y
+        # nn.BatchNorm2d.forward's bookkeeping, then its F.batch_norm call
+        self._check_input_dim(x)
+        self.num_batches_tracked.add_(1)
+        factor = self.momentum if self.momentum is not None else \
+            1.0 / float(self.num_batches_tracked)
+        return bn_ops.batch_norm_train(
+            x, self.weight, self.bias, self.running_mean, self.running_var,
+            factor, self.eps, relu=self.relu)
 
 
 def _global_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x, comm):
@@ -52,7 +93,8 @@ def _forward(bn, own_forward, x):
     comm = current_comm()
     if comm is None or not bn.training:
         return own_forward(x)
-    return _global_batch_norm(bn, x, comm)
+    y = _global_batch_norm(bn, x, comm)
+    return F.relu(y) if isinstance(bn, BatchNorm2d) and bn.relu else y
 
 
 @contextlib.contextmanager

@@ -31,6 +31,7 @@ import torch
 from ..core import mesh, profiling
 from ..core.device import resolve_device, upload
 from ..io.prefetch import Prefetcher
+from ..ops.batch_norm import batch_norm_train
 from . import data as data_utils
 from . import sharded_loss as SL
 from .checkpoint import has_checkpoint, restore_checkpoint, save_checkpoint
@@ -231,8 +232,14 @@ def train_vqvae(model, dataset: np.ndarray, output_dir: str,
     next pass's first batch) and ``train.checkpoint`` (a checkpoint's save
     and barrier); and these counters: ``train.steps``,
     ``train.val_steps``, ``train.h2d_bytes`` (what the call copies to the
-    device) and ``train.checkpoints``. The call's record, {"device",
-    "seconds", "spans": {name: [count, seconds]}, "counters"}, is then
+    device), ``train.checkpoints``, and ``train.bn_kernel`` and
+    ``train.bn_fallback`` (the training-mode batch norms of the call that
+    ran the port's kernels, on the card, and that ran ``F.batch_norm``, on
+    the CPU: ``ops.batch_norm.batch_norm_train``'s counters over the call,
+    which count every thread's, both present even at 0; the cross-rank
+    statistics of a data-parallel step count in neither). The
+    call's record, {"device", "seconds", "spans": {name: [count,
+    seconds]}, "counters"}, is then
     ``profiling.last_record("train_vqvae")``. With the timing log set, the
     call appends one line an epoch (``stage`` "train.epoch", ``epoch``,
     ``seconds``, and the epoch's spans and counters) and one for the call
@@ -365,6 +372,8 @@ def train_vqvae(model, dataset: np.ndarray, output_dir: str,
             edges.synced()
             return means
 
+        bn_kernel = batch_norm_train.launches
+        bn_fallback = batch_norm_train.fallbacks
         tm_before = getattr(model, "tm_loss_fn", None)
         if traj_sharded_loss:
             model.tm_loss_fn = SL.make_traj_sharded_tm_loss(comm)
@@ -408,6 +417,9 @@ def train_vqvae(model, dataset: np.ndarray, output_dir: str,
             edges.close()
             if traj_sharded_loss:
                 model.tm_loss_fn = tm_before
+        rec.count("train.bn_kernel", batch_norm_train.launches - bn_kernel)
+        rec.count("train.bn_fallback",
+                  batch_norm_train.fallbacks - bn_fallback)
     rec.keep("train_vqvae", "train.call", device=dev.type)
     return model, history
 

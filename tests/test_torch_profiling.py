@@ -33,7 +33,10 @@ EPOCHS, TRAIN_BATCHES, VAL_BATCHES = 2, (10, 10, 4), (4,)
 SPANS = ("train.call", "train.upload", "train.epoch", "train.feed_wait",
          "train.load", "train.drained", "train.checkpoint")
 COUNTERS = ("train.steps", "train.val_steps", "train.h2d_bytes",
-            "train.checkpoints")
+            "train.checkpoints", "train.bn_kernel", "train.bn_fallback")
+# VQVAEz32's training-mode batch norms a step (enc.1, enc.4, dec.2 and
+# two a residual layer in each of its two stacks of two)
+BN_A_STEP = 11
 
 
 def _relations():
@@ -131,10 +134,14 @@ def test_record_counts(calls, how):
     batches = EPOCHS * (TRAIN_BATCHES + VAL_BATCHES)
     h2d = calls["ds"].nbytes + calls["mask"][:, :1].size + \
         sum(b * b + 4 * b for b in batches)
+    # on the CPU every batch norm takes F.batch_norm; validation's run on
+    # the running statistics and count in neither
     assert rec["counters"] == {"train.steps": n_train,
                                "train.val_steps": n_val,
                                "train.h2d_bytes": h2d,
-                               "train.checkpoints": checkpoints}
+                               "train.checkpoints": checkpoints,
+                               "train.bn_kernel": 0,
+                               "train.bn_fallback": BN_A_STEP * n_train}
     assert rec["seconds"] == rec["spans"]["train.call"][1] > 0
     inner = sum(rec["spans"][k][1] for k in ("train.upload",
                                              "train.epoch"))

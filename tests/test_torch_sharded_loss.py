@@ -41,7 +41,9 @@ from dynamorph_tpu_torch.core import mesh
 from dynamorph_tpu_torch.io.prefetch import AsyncWriter
 from dynamorph_tpu_torch.models import VQVAEz16, common
 from dynamorph_tpu_torch.models.jax_import import state_dict_from_jax
-from dynamorph_tpu_torch.nn.batchnorm import cross_rank_batch_norm
+from dynamorph_tpu_torch.nn.batchnorm import (BatchNorm2d,
+                                              cross_rank_batch_norm)
+from dynamorph_tpu_torch.ops import batch_norm as bn_ops
 from dynamorph_tpu_torch.pipeline.patch_vae import encode_patches
 from dynamorph_tpu_torch.reduce.pca import fit_pca_distributed
 from dynamorph_tpu_torch.train import sharded_loss as SL
@@ -261,13 +263,17 @@ def test_ring_loss_equals_dense_when_shard_aligned(ring_problem):
                                zt.grad.numpy(), rtol=1e-5, atol=1e-6)
 
 
-def _bn_net(state=None):
+def _bn_net(state=None, folded=False):
     """A conv + linear net with two batch norms moved off the identity;
     with ``state``, those weights (threads share torch's seeded RNG, so
-    ranks copy the main thread's net rather than draw their own)."""
+    ranks copy the main thread's net rather than draw their own). With
+    ``folded`` the first is the port's ``BatchNorm2d`` with the ReLU
+    folded in (the same ``state_dict``)."""
     torch.manual_seed(0)
-    net = nn.Sequential(nn.Conv2d(2, 6, 3, padding=1), nn.BatchNorm2d(6),
-                        nn.ReLU(), nn.Flatten(), nn.Linear(6 * 8 * 8, 5),
+    bn, act = (BatchNorm2d(6, relu=True), nn.Identity()) if folded else \
+        (nn.BatchNorm2d(6), nn.ReLU())
+    net = nn.Sequential(nn.Conv2d(2, 6, 3, padding=1), bn, act,
+                        nn.Flatten(), nn.Linear(6 * 8 * 8, 5),
                         nn.BatchNorm1d(5))
     with torch.no_grad():
         for m in net.modules():
@@ -279,22 +285,30 @@ def _bn_net(state=None):
     return net.train()
 
 
+@pytest.mark.parametrize("folded", [False, True],
+                         ids=["unfolded", "folded"])
 @pytest.mark.parametrize("n", [2, 4])
-def test_cross_rank_batch_norm_is_the_global_batch_norm(rng, n):
+def test_cross_rank_batch_norm_is_the_global_batch_norm(rng, n, folded):
     """n ranks of 8 / n rows each against one net on all 8: outputs, the
     loss, the gradients averaged over the ranks and the running buffers,
-    which the ranks hold bit for bit alike."""
+    which the ranks hold bit for bit alike. ``folded``: the one net takes
+    the port's ``BatchNorm2d`` (``F.batch_norm`` then ``F.relu`` on the
+    CPU) and the ranks its ReLU after the global statistics, bit-equal to
+    the unfolded ranks' and counted in neither of the op's counters (the
+    cross-rank statistics are not ``F.batch_norm``)."""
     x = (rng.randn(8, 2, 8, 8) * 3 + 1).astype(np.float32)
     t = rng.randn(8, 5).astype(np.float32)
-    one = _bn_net()
+    one = _bn_net(folded=folded)
     state = {k: v.clone() for k, v in one.state_dict().items()}
     y1 = one(torch.from_numpy(x))
     loss = ((y1 - torch.from_numpy(t)) ** 2).mean()
     loss.backward()
     b = len(x) // n
+    counted = (bn_ops.batch_norm_train.launches,
+               bn_ops.batch_norm_train.fallbacks)
 
-    def rank(comm):
-        net = _bn_net(state)
+    def rank(comm, folded=folded):
+        net = _bn_net(state, folded)
         sl = slice(comm.rank * b, (comm.rank + 1) * b)
         with mesh.collective_scope(comm), cross_rank_batch_norm(net):
             y = net(torch.from_numpy(x[sl]))
@@ -307,6 +321,14 @@ def test_cross_rank_batch_norm_is_the_global_batch_norm(rng, n):
                 {k: v.numpy() for k, v in net.state_dict().items()})
 
     outs = run_ranks(n, rank)
+    assert (bn_ops.batch_norm_train.launches,
+            bn_ops.batch_norm_train.fallbacks) == counted
+    if folded:      # the ranks bit for bit as with nn.BatchNorm2d + nn.ReLU
+        for a, b_ in zip(outs, run_ranks(n, lambda c: rank(c, False))):
+            np.testing.assert_array_equal(a[0], b_[0])
+            assert a[1] == b_[1]
+            for k in a[2]:
+                np.testing.assert_array_equal(a[2][k], b_[2][k])
     np.testing.assert_allclose(np.concatenate([o[0] for o in outs]),
                                y1.detach().numpy(), rtol=1e-5, atol=1e-5)
     assert len({o[1] for o in outs}) == 1
